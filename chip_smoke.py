@@ -3,13 +3,23 @@
 
     python3 chip_smoke.py
 
-Drives the port's offline-classify path at the bench geometry of
-bench.py: 3 target + 1 deplete filters of 512 bins x 100 kb (k=13, h=3,
-rbt1) and bench.py's 40,960 reads of 1 kb (seed 42), and checks:
+Drives the port's two paths at full width and holds every kernel against
+its plain version:
+
+* offline classify at the bench geometry of bench.py: 3 target + 1
+  deplete filters of 512 bins x 100 kb (k=13, h=3, rbt1) and bench.py's
+  40,960 reads of 1 kb (seed 42);
+* the live target loop at scripts/bench_live.py's workload: 2,048 reads
+  of 4 kb (1,024 from genome 0, a target, and 1,024 from genome 3, the
+  depletion genome) replayed over 512 channels, basecalled by the trained
+  synth48 GRU and decided against the same four filters.
+
+Phases:
 
 1. card   — name and power limit (nvidia-smi), torch and CUDA versions;
-2. build  — nvcc builds the kernels of ops/csrc/ibf_count.cu (seconds),
-            with the -Xptxas -v register / shared-memory lines;
+2. build  — nvcc builds ops/csrc/ibf_count.cu and ops/csrc/gru.cu, one
+            process each, at once (seconds), with the -Xptxas -v register /
+            shared-memory / spill lines;
 3. state  — the four bench genomes regenerated from bench.py's seeds
             (sha256 equal to the tracked .bench_cache FASTAs), the four
             filters built on the card (bits sha256 equal to the tracked
@@ -17,8 +27,9 @@ rbt1) and bench.py's 40,960 reads of 1 kb (seed 42), and checks:
             checkout they are also loaded and compared), merged into one
             stack of W=72 words;
 4. kernels — K1 (accumulate_planes) and K2 (planes_dual_max) on real
-            inputs of that stack at the phase-A and phase-B shapes,
-            bit-equal to their plain versions, timed with CUDA events;
+            inputs of that stack at the phase-A and phase-B shapes of
+            classify and the short bucket of the live loop, bit-equal to
+            their plain versions, timed with CUDA events;
 5. main   — ClassifyEngine on the read set, pipelined as bench.py runs
             it: exactly 20,493 of 40,960 reads classified, both kernel
             counters > 0, 256 reads' decisions equal to the numpy oracle,
@@ -26,7 +37,22 @@ rbt1) and bench.py's 40,960 reads of 1 kb (seed 42), and checks:
    profile — host encode time and one host batch under torch.profiler
             (device busy share, top kernels); informational;
 6. cli    — `python -m readbouncer_tpu_torch --config` on 2,048 of the
-            reads: output FASTAs and counters equal to the in-process run.
+            reads: output FASTAs and counters equal to the in-process run;
+7. gru    — K3 (gru_layer) against its plain version on the live path's
+            real gate inputs (chunk signals framed and projected through
+            synth48's layer 0) at B=256 and 512, T=320, H=48, both scan
+            directions, and at H=96 with seeded random weights; the full
+            forward's logits and argmax tokens against the plain forward;
+            timed beside PyTorch's cuDNN nn.GRU as a yardstick;
+8. live   — the live loop on bench_live's workload with the synth48 GRU
+            caller, then with the Oracle caller: 1,024 reads unblocked
+            (every genome-3 read) and 1,024 stop_receiving (every genome-0
+            read), nothing unclassified, no failed action, the K1, K2 (and
+            with the GRU, K3) counters risen; tick latencies;
+9. cli live — `python -m readbouncer_tpu_torch` usage target (DeepNano
+            caller, synth48) on a small replay FASTA: output FASTAs,
+            decision CSV (less its timing column) and counters equal to
+            an in-process run; usage test.
 
 Prints one line per phase with its seconds, a JSON line with the
 kernels' numbers, the card line, and last
@@ -50,16 +76,24 @@ import numpy as np
 import torch
 
 from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch
+from readbouncer_tpu_torch.classify.fused import LiveFused
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.classify.policy import classify_decisions
+from readbouncer_tpu_torch.config import ConfigReader
 from readbouncer_tpu_torch.ibf.build import build_ibf_records
 from readbouncer_tpu_torch.ibf.hashing import encode_bases
 from readbouncer_tpu_torch.ibf.params import IBFParams
 from readbouncer_tpu_torch.ibf.query import anded_windows
 from readbouncer_tpu_torch.ibf.query_np import counts_np
 from readbouncer_tpu_torch.ibf.storage import IBFData
+from readbouncer_tpu_torch.main import live_config, make_basecaller, make_replay_source
+from readbouncer_tpu_torch.models.basecaller import GRUBasecaller
+from readbouncer_tpu_torch.models.gru import frame_signal_t, gru_logits
+from readbouncer_tpu_torch.ops import gru as gru_ops
 from readbouncer_tpu_torch.ops import ibf_count
-from readbouncer_tpu_torch.ops._build import load_library
+from readbouncer_tpu_torch.ops._build import load_all, load_library
+from readbouncer_tpu_torch.stream.replay import NearestLevelBasecaller, ReplayRead, ReplaySource, sequence_to_signal
+from readbouncer_tpu_torch.stream.scheduler import AdaptiveSampler, LiveClassifier, LiveConfig
 
 ROOT = Path(__file__).resolve().parent
 
@@ -92,6 +126,15 @@ ORACLE_READS = 256
 REPEATS = 3  # timed runs after the counted one, for the run-to-run spread
 CLI_READS = 2_048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# scripts/bench_live.py's workload
+LIVE_READS = 2_048
+LIVE_READ_LEN = 4_000
+LIVE_CHANNELS = 512
+LIVE_BATCH = 512
+LIVE_FRAMES = 320  # frames of a 0.4 s chunk, (1600 - 66) // 5 + 1 = 307, padded to x64
+TICK_BUDGET_S = 0.4  # break_reads_after_seconds
+CLI_LIVE_READS = 64
 # int32 ALU rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (the fp32 rate
 # of 67 TFLOP/s counts 128 lanes and an FMA as two operations); both
 # kernels' least work is far below it, so their bound is the bytes
@@ -144,12 +187,17 @@ def card_line() -> str:
 
 
 def phase_build() -> None:
-    kl = load_library()
-    check(kl.path.exists(), "kernel library missing after build")
-    say(f"build: nvcc {'built' if kl.built else 'found'} {kl.path.name} in {kl.seconds:.2f} s")
-    for line in kl.log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            say(f"  {line.strip()}")
+    t0 = time.monotonic()
+    libs = load_all()
+    say(f"build: {len(libs)} libraries, one nvcc each, at once: {time.monotonic() - t0:.2f} s")
+    for kl in libs:
+        check(kl.path.exists(), f"kernel library {kl.name} missing after build")
+        say(f"  {kl.name}: nvcc {'built' if kl.built else 'found'} {kl.path.name} in {kl.seconds:.2f} s")
+        for line in kl.log.splitlines():
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line or "spill" in line):
+                say(f"    {line.strip()}")
+            elif "bytes stack frame" in line:
+                say(f"    {line.strip()}")
 
 
 def phase_state(dev) -> tuple[list[IBFData], list[np.ndarray]]:
@@ -217,36 +265,59 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_inputs(engine: ClassifyEngine, seqs: list[str], chunks: slice):
-    """anded words and thresholds of the merged stack for 1,024 reads at
-    the given chunks (phase A: chunk 0; phase B: chunks 1-3)."""
+def _anded_inputs(engine: ClassifyEngine, frags: np.ndarray, lens: np.ndarray, tab_b, tab_r):
+    """anded words [2R, n, W] of the merged stack and the per-read
+    thresholds looked up in the given tables."""
     stack, _ = engine._plan
-    cl = engine.chunk_length
-    enc, lens = encode_batch(seqs[:BATCH], cl * engine.max_chunks)
-    c0, c1 = chunks.start, chunks.stop
-    frags = np.ascontiguousarray(enc[:, c0 * cl : c1 * cl]).reshape(-1, cl)
-    steps = np.arange(c0, c1) * cl
-    clens = np.clip(lens[:, None].astype(np.int64) - steps[None, :], 0, cl).reshape(-1)
     dev = engine.device
-    frags_t = torch.from_numpy(frags).to(dev)
-    lens_t = torch.from_numpy(clens).to(dev)
+    frags_t = torch.from_numpy(np.ascontiguousarray(frags)).to(dev)
+    lens_t = torch.from_numpy(lens.astype(np.int64)).to(dev)
     anded = anded_windows(
         stack.bits, frags_t, lens_t, k=stack.kmer_size, h=stack.hash_functions,
         rows=stack.rows, scheme=stack.scheme,
     )
     R, _, n, W = anded.shape
-    fused = engine._classifier(1, 0)
-    thr_b = fused.tabs["tb"].index_select(0, lens_t).contiguous()
-    thr_r = fused.tabs["tr"].index_select(0, lens_t).contiguous()
+    thr_b = tab_b.index_select(0, lens_t).contiguous()
+    thr_r = tab_r.index_select(0, lens_t).contiguous()
     return stack, anded.reshape(2 * R, n, W), thr_b, thr_r
 
 
-def phase_kernels(engine: ClassifyEngine, seqs: list[str]) -> dict:
-    """K1 and K2 against their plain versions at the phase-A and phase-B
-    shapes; returns per-kernel numbers at each shape."""
+def kernel_inputs(engine: ClassifyEngine, seqs: list[str], chunks: slice):
+    """K1/K2 inputs for 1,024 reads at the given chunks (classify phase A:
+    chunk 0; phase B: chunks 1-3)."""
+    cl = engine.chunk_length
+    enc, lens = encode_batch(seqs[:BATCH], cl * engine.max_chunks)
+    c0, c1 = chunks.start, chunks.stop
+    frags = enc[:, c0 * cl : c1 * cl].reshape(-1, cl)
+    steps = np.arange(c0, c1) * cl
+    clens = np.clip(lens[:, None].astype(np.int64) - steps[None, :], 0, cl).reshape(-1)
+    fused = engine._classifier(1, 0)
+    return _anded_inputs(engine, frags, clens, fused.tabs["tb"], fused.tabs["tr"])
+
+
+def live_kernel_inputs(engine: ClassifyEngine, live_seqs: list[str]):
+    """K1/K2 inputs of one full live tick's short bucket: 512 reads of the
+    live workload as they reach the classifier (two 0.4 s chunks, ~355
+    bp) at the bucket width of 512."""
+    width = 512
+    enc, lens = encode_batch([s[:355] for s in live_seqs[:LIVE_BATCH]], width)
+    stack, _ = engine._plan
+    live = LiveFused(stack, None, width, ERROR_RATE, 0.95)
+    return _anded_inputs(engine, enc, lens, live.tabs["tb"], live.tabs["tr"])
+
+
+def phase_kernels(engine: ClassifyEngine, seqs: list[str], live_seqs: list[str]) -> dict:
+    """K1 and K2 against their plain versions at classify's phase-A and
+    phase-B shapes and at the live short bucket ("L"); returns per-kernel
+    numbers at each shape."""
     out = {}
-    for label, chunks in (("A", slice(0, 1)), ("B", slice(1, 4))):
-        stack, a, thr_b, thr_r = kernel_inputs(engine, seqs, chunks)
+    shapes = (
+        ("A", lambda: kernel_inputs(engine, seqs, slice(0, 1))),
+        ("B", lambda: kernel_inputs(engine, seqs, slice(1, 4))),
+        ("L", lambda: live_kernel_inputs(engine, live_seqs)),
+    )
+    for label, inputs in shapes:
+        stack, a, thr_b, thr_r = inputs()
         R2, n, W = a.shape
         R = R2 // 2
         P = max(int(n).bit_length(), 1)
@@ -296,7 +367,7 @@ def phase_kernels(engine: ClassifyEngine, seqs: list[str]) -> dict:
             d["bound_ms"] = max(t_bytes, t_ops)
             d["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             say(
-                f"  {kname} phase {label}: {d['shape']}: kernel {d['ms']:.4f} ms, plain "
+                f"  {kname} shape {label}: {d['shape']}: kernel {d['ms']:.4f} ms, plain "
                 f"{d['plain_ms']:.3f} ms, bound {d['bound_ms'] * 1e3:.1f} us ({d['bound_by']}: "
                 f"{d['bytes'] / 1e6:.1f} MB, {d['ops'] / 1e6:.0f} M int ops), bit-equal"
             )
@@ -335,18 +406,14 @@ def oracle_decisions(filters: list[IBFData], seq: str, cl: int, C: int):
 def phase_main(engine: ClassifyEngine, filters, seqs: list[str]):
     engine.classify_sequences(seqs[:2 * BATCH])  # warm-up: allocator, library
     torch.cuda.synchronize()
-    ibf_count.accumulate_planes.launches = 0
-    ibf_count.planes_dual_max.launches = 0
+    _reset_counters()
     t0 = time.perf_counter()
     classified, best, attempts = engine.classify_sequences_pipelined(
         seqs, host_batch_reads=HOST_BATCH, depth=DEPTH
     )
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {
-        "K1": ibf_count.accumulate_planes.launches,
-        "K2": ibf_count.planes_dual_max.launches,
-    }
+    launches = _counters()
     n_cls = int(classified.sum())
     say(
         f"main: classified {n_cls}/{len(seqs)} in {dt:.3f} s = {len(seqs) / dt:.0f} reads/s "
@@ -377,11 +444,21 @@ def phase_main(engine: ClassifyEngine, filters, seqs: list[str]):
     return classified, best, launches, dt
 
 
+def device_rows(prof) -> list[tuple[float, int, str]]:
+    """(device ms, launches, kernel name) of every kernel in a profile."""
+    from torch.autograd import DeviceType
+
+    return [
+        (e.self_device_time_total / 1e3, e.count, e.key)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+
+
 def phase_profile(engine: ClassifyEngine, seqs: list[str]) -> None:
     """Where the main path's time goes: host encode of the whole read set,
     and one host batch under torch.profiler (device busy share and the
     kernels that take the device time).  Informational; checks nothing."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -394,11 +471,7 @@ def phase_profile(engine: ClassifyEngine, seqs: list[str]) -> None:
         engine.classify_sequences(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [
-        (e.self_device_time_total / 1e3, e.count, e.key)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     say(
         f"profile: one host batch of {len(batch)} reads under the profiler: wall {wall_ms:.1f} ms, "
@@ -408,15 +481,18 @@ def phase_profile(engine: ClassifyEngine, seqs: list[str]) -> None:
         say(f"  {ms:8.2f} ms {count:5d}x {key[:100]}")
 
 
-def phase_cli(filters, seqs, classified, best) -> None:
+def save_filters(filters, filter_dir: Path) -> list[Path]:
+    paths = []
+    for f in filters:
+        paths.append(filter_dir / f"{f.name}.ribf")
+        f.save(paths[-1])
+    return paths
+
+
+def phase_cli(paths: list[Path], filters, seqs, classified, best) -> None:
     n = CLI_READS
     with tempfile.TemporaryDirectory() as td:
         td = Path(td)
-        paths = []
-        for f in filters:
-            p = td / f"{f.name}.ribf"
-            f.save(p)
-            paths.append(p)
         reads = td / "reads.fasta"
         reads.write_text("".join(f">r{i}\n{seqs[i]}\n" for i in range(n)))
         out_dir = td / "out"
@@ -451,11 +527,320 @@ def phase_cli(filters, seqs, classified, best) -> None:
         say(f"cli: python -m readbouncer_tpu_torch classified {want_found}/{n}; FASTAs and counters equal")
 
 
+# ---------------------------------------------------------------- live loop
+
+
+def live_workload(genomes: list[np.ndarray]) -> list[tuple[str, np.ndarray, str, int]]:
+    """scripts/bench_live.py's reads, draw for draw: (read id, signal,
+    sequence, genome of origin) for 1,024 reads of genome 0 and 1,024 of
+    genome 3, permuted, with squiggles from the same generator."""
+    rng = np.random.default_rng(7)
+    n_t = LIVE_READS // 2
+    seqs = reads_from(rng, genomes[0], n_t, LIVE_READ_LEN) + reads_from(
+        rng, genomes[3], LIVE_READS - n_t, LIVE_READ_LEN
+    )
+    order = rng.permutation(len(seqs))
+    return [
+        (f"r{i}", sequence_to_signal(seqs[j], rng=rng), seqs[j], 0 if j < n_t else 3)
+        for i, j in enumerate(order)
+    ]
+
+
+def _gru_bound(B: int, T: int, H: int) -> tuple[float, str, int, int]:
+    """The least time of one GRU layer's recurrence: xg read and ys written
+    once (plus the weights), or its products (6 B T H^2) and gate math
+    (~12 B T H) at the fp32 rate, whichever is larger."""
+    nbytes = 4 * (B * T * 3 * H + B * T * H + 3 * H * H + 3 * H)
+    flops = 2 * B * T * H * 3 * H + 12 * B * T * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def _nn_gru(layer: dict, H: int, dev) -> torch.nn.GRU:
+    """cuDNN's GRU with one layer's weights, gates reordered to (r, z, n)."""
+    wz, wr, wn = layer["w_zrn"].split(H, dim=1)
+    bz, br, bn = layer["b_zrn"].split(H)
+    rz, rr = layer["r_zr"].split(H, dim=1)
+    bhz, bhr = layer["b_hzr"].split(H)
+    gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(torch.cat([wr.T, wz.T, wn.T]))
+        gru.bias_ih_l0.copy_(torch.cat([br, bz, bn]))
+        gru.weight_hh_l0.copy_(torch.cat([rr.T, rz.T, layer["rn"].T]))
+        gru.bias_hh_l0.copy_(torch.cat([bhr, bhz, layer["bhn"]]))
+    return gru
+
+
+def _gru_case(name: str, layer: dict, x: torch.Tensor) -> dict:
+    """K3 against its plain version (both directions) on x's gate inputs,
+    timed beside the plain loop and cuDNN's nn.GRU on the same x."""
+    B, T, H = x.shape
+    with torch.no_grad():
+        xg = (x @ layer["w_zrn"] + layer["b_zrn"]).contiguous()
+        err = 0.0
+        for reverse in (False, True):
+            got = gru_ops.gru_layer(layer, xg, reverse=reverse)
+            want = gru_ops.gru_layer_plain(layer, xg, reverse=reverse)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+        check(err <= 1e-5, f"K3 {name}: max abs error {err:.3g} on ys > 1e-5")
+        gru = _nn_gru(layer, H, x.device)
+        lib_err = float((gru(x)[0] - gru_ops.gru_layer(layer, xg)).abs().max())
+        ms = cuda_ms(lambda: gru_ops.gru_layer(layer, xg), 20)
+        plain_ms = cuda_ms(lambda: gru_ops.gru_layer_plain(layer, xg), 2, warmup=1)
+        lib_ms = cuda_ms(lambda: gru(x), 20)
+    bound_ms, bound_by, nbytes, flops = _gru_bound(B, T, H)
+    rows = load_library("gru").lib.rb_gru_rows(B, H)
+    smem = (3 * H * H + 2 * rows * H) * 4
+    say(f"  K3 {name}: {rows} batch rows per block, {-(-B // rows)} blocks of {rows * H} threads, "
+        f"{smem / 1024:.1f} KiB dynamic shared memory per block")
+    d = dict(
+        shape=f"xg f32 [{B}, {T}, {3 * H}] -> ys f32 [{B}, {T}, {H}]",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=lib_ms, library_max_abs_err=lib_err,
+    )
+    say(
+        f"  K3 {name}: {d['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, nn.GRU (cuDNN, "
+        f"input projection included) {lib_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); max abs err {err:.2e} (plain), "
+        f"{lib_err:.2e} (nn.GRU)"
+    )
+    return d
+
+
+def phase_gru(dev, workload) -> dict:
+    """K3 on the live path's real gate inputs, the full forward against the
+    plain forward, and K3's launches per full 512-chunk tick."""
+    caller = GRUBasecaller(network="synth48", max_frames=LIVE_FRAMES, device=dev)
+    model = caller.model
+    p = model.params
+    chunks = [sig[:1600] for _, sig, _, _ in workload[:LIVE_BATCH]]
+    batch, _ = caller.signal_batch(chunks, LIVE_BATCH)
+    with torch.no_grad():
+        sig = torch.from_numpy(batch).to(dev)
+        frames = frame_signal_t(sig.float(), model.window, model.frame_stride)
+        x0 = frames @ p["w_in"] + p["b_in"]  # layer 0's input [512, 320, 48]
+    out = {}
+    for B in (256, 512):
+        out[f"B{B}"] = _gru_case(f"synth48 layer 0, B={B}", p["layers"][0], x0[:B].contiguous())
+    H = 96
+    rng = np.random.default_rng(96)
+    lim = 1.0 / np.sqrt(H)
+    shapes = {"w_zrn": (H, 3 * H), "b_zrn": (3 * H,), "r_zr": (H, 2 * H), "b_hzr": (2 * H,),
+              "rn": (H, H), "bhn": (H,)}
+    layer96 = {k: torch.from_numpy(rng.uniform(-lim, lim, v).astype(np.float32)).to(dev)
+               for k, v in shapes.items()}
+    x96 = torch.from_numpy(rng.normal(size=(256, LIVE_FRAMES, H)).astype(np.float32)).to(dev)
+    out["H96"] = _gru_case("H=96 seeded random weights, B=256", layer96, x96)
+    with torch.no_grad():
+        kern = model.logits(frames)
+        plain = gru_logits(p, frames, kernel=False)
+        torch.cuda.synchronize()
+        lerr = float((kern - plain).abs().max())
+        tk, tp = kern.argmax(-1), plain.argmax(-1)
+        diff = (tk != tp).nonzero()
+        top2 = plain.topk(2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1])[tk != tp]
+    check(lerr <= 1e-4, f"forward: max abs error {lerr:.3g} on logits > 1e-4")
+    check(bool((gaps < 1e-4).all()), f"forward: {len(diff)} tokens differ, top-2 gaps {gaps.tolist()[:8]}")
+    say(
+        f"  forward [512, 320, 66] -> logits [512, 320, 5]: max abs err {lerr:.2e} against the plain "
+        f"forward; {len(diff)} argmax tokens differ"
+    )
+    before = gru_ops.gru_layer.launches
+    caller.basecall(chunks)
+    per_tick = gru_ops.gru_layer.launches - before
+    check(per_tick == 8, f"K3 launches per 512-chunk tick {per_tick}, expected 2 halves x 4 layers")
+    say(f"  K3 launches per full 512-chunk tick: {per_tick} (2 halves x 4 layers)")
+    out.update(logits_max_abs_err=lerr, tokens_differ=len(diff), launches_per_tick=per_tick)
+    return out
+
+
+def _counters() -> dict:
+    return {
+        "K1": ibf_count.accumulate_planes.launches,
+        "K2": ibf_count.planes_dual_max.launches,
+        "K3": gru_ops.gru_layer.launches,
+    }
+
+
+def _reset_counters() -> None:
+    ibf_count.accumulate_planes.launches = 0
+    ibf_count.planes_dual_max.launches = 0
+    gru_ops.gru_layer.launches = 0
+
+
+def profile_live_tick(basecaller, classifier, workload) -> None:
+    """One full-width tick's work under torch.profiler: the GRU basecall of
+    512 fresh 0.4 s chunks, then the decisions on 512 reads of two chunks'
+    length (~355 bp).  Informational; checks nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    chunks = [sig[:1600] for _, sig, _, _ in workload[:LIVE_BATCH]]
+    seqs = [seq[:355] for _, _, seq, _ in workload[:LIVE_BATCH]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        basecaller.basecall(chunks)
+        t1 = time.perf_counter()
+        classifier.decide(seqs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    wall = (t2 - t0) * 1e3
+    say(
+        f"  live tick profile (512 chunks, under the profiler): wall {wall:.1f} ms (basecall "
+        f"{(t1 - t0) * 1e3:.1f}, decide {(t2 - t1) * 1e3:.1f}), device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%)"
+    )
+    for ms, count, key in sorted(rows, reverse=True)[:8]:
+        say(f"    {ms:8.3f} ms {count:5d}x {key[:100]}")
+
+
+def phase_live(dev, filters, workload, caller_name: str) -> dict:
+    """The live loop on bench_live's workload; checks every read's action
+    by its origin and that the path's kernels launched."""
+    src = ReplaySource(
+        reads=[ReplayRead(rid, sig, seq) for rid, sig, seq, _ in workload], channels=LIVE_CHANNELS
+    )
+    origin = {rid: g for rid, _, _, g in workload}
+    cfg = LiveConfig(batch_size=LIVE_BATCH, profile_ticks=True)
+    classifier = LiveClassifier(filters[:3], filters[3:], cfg, device=dev)
+    gru = caller_name == "synth48"
+    if gru:
+        basecaller = GRUBasecaller(network="synth48", max_frames=LIVE_FRAMES, device=dev)
+    else:
+        basecaller = NearestLevelBasecaller()
+    with tempfile.TemporaryDirectory() as td:
+        sampler = AdaptiveSampler(src, basecaller, classifier, output_dir=td, cfg=cfg)
+        # warm both classifier widths and every pow2 GRU bucket the run meets
+        t0 = time.monotonic()
+        classifier.decide(["ACGT" * (w // 4) for w in classifier.bucket_lens])
+        if gru:
+            b = 32
+            while b <= LIVE_CHANNELS:
+                basecaller.basecall([np.zeros(1600, np.float32)] * b)
+                b *= 2
+        torch.cuda.synchronize()
+        warm = time.monotonic() - t0
+        _reset_counters()
+        t0 = time.monotonic()
+        sampler.step()
+        first = time.monotonic() - t0
+        stats = sampler.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = _counters()
+    if gru:
+        profile_live_tick(basecaller, classifier, workload)
+    lat = np.array(stats.tick_latencies[1:])
+    prof = stats.tick_profile[1:]
+    bc = [q["basecall_ms"] for q in prof if "basecall_ms" in q]
+    cl = [q["classify_ms"] for q in prof if "classify_ms" in q]
+    wrong = [r.read_id for r in src.reads if r.unblocked != (origin[r.read_id] == 3)]
+    d = dict(
+        ticks=stats.ticks, unblocked=stats.unblocked, stop_received=stats.stop_received,
+        unclassified=stats.unclassified, actions_failed=stats.actions_failed,
+        p50_ms=float(np.median(lat)) * 1e3, p95_ms=float(np.percentile(lat, 95)) * 1e3,
+        max_ms=float(lat.max()) * 1e3, within_budget=float((lat < TICK_BUDGET_S).mean()),
+        basecall_ms=float(np.mean(bc)), classify_ms=float(np.mean(cl)),
+        first_tick_s=first, warmup_s=warm, wall_s=wall, launches=launches,
+    )
+    say(
+        f"live ({caller_name}): {stats.ticks} ticks in {wall:.2f} s; unblocked {stats.unblocked}, "
+        f"stop_receiving {stats.stop_received}, unclassified {stats.unclassified}, actions failed "
+        f"{stats.actions_failed}; tick latency p50 {d['p50_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms, "
+        f"max {d['max_ms']:.2f} ms, {100 * d['within_budget']:.1f}% within {TICK_BUDGET_S} s; mean "
+        f"basecall {d['basecall_ms']:.2f} ms and classify {d['classify_ms']:.2f} ms per tick; "
+        f"first tick {first:.2f} s, warm-up {warm:.2f} s; launches {launches}"
+    )
+    check(stats.unblocked == LIVE_READS // 2, f"live {caller_name}: unblocked {stats.unblocked}")
+    check(stats.stop_received == LIVE_READS // 2, f"live {caller_name}: stop_receiving {stats.stop_received}")
+    check(not wrong, f"live {caller_name}: {len(wrong)} reads acted on against their origin: {wrong[:5]}")
+    check(stats.unclassified == 0 and stats.actions_failed == 0,
+          f"live {caller_name}: unclassified {stats.unclassified}, failed {stats.actions_failed}")
+    needed = ("K1", "K2", "K3") if gru else ("K1", "K2")
+    check(all(launches[k] > 0 for k in needed), f"live {caller_name}: kernel counters {launches}")
+    return d
+
+
+def phase_cli_live(filter_dir: Path, dev, workload) -> None:
+    """usage target through the CLI against an in-process run of the same
+    config, then usage test."""
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        fasta = td / "replay.fasta"
+        fasta.write_text("".join(f">{rid}\n{seq}\n" for rid, _, seq, _ in workload[:CLI_LIVE_READS]))
+        q = lambda ps: ", ".join(f'"{filter_dir / f"{bench_name(i)}.ribf"}"' for i in ps)
+
+        def config(name, usage):
+            cfg = td / f"{name}.toml"
+            cfg.write_text(
+                f'usage = "{usage}"\noutput_directory = "{td / name}"\nlog_directory = "{td / "log"}"\n\n'
+                f"[IBF]\nkmer_size = 13\nexp_seq_error_rate = {ERROR_RATE}\n"
+                f"target_files = [{q(range(3))}]\ndeplete_files = [{q([3])}]\n\n"
+                f'[Basecaller]\ncaller = "DeepNano"\nnetwork = "synth48"\n\n'
+                f'[TPU]\nbatch_size = {LIVE_BATCH}\nreplay_file = "{fasta}"\n'
+            )
+            return cfg
+
+        cfg = config("cli", "target")
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        proc = subprocess.run(
+            [sys.executable, "-m", "readbouncer_tpu_torch", "--config", str(cfg)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+        )
+        check(proc.returncode == 0, f"CLI target exited {proc.returncode}: {proc.stderr[-2000:]}")
+        config_in = ConfigReader(config("inproc", "target")).parse()
+        source = make_replay_source(config_in)
+        live = live_config(config_in)
+        sampler = AdaptiveSampler(
+            source, make_basecaller(config_in, source, dev),
+            LiveClassifier(*[[IBFData.load(p) for p in ps] for ps in (config_in.ibf.target_files,
+                                                                       config_in.ibf.deplete_files)],
+                           live, device=dev),
+            output_dir=config_in.output_dir, cfg=live,
+        )
+        stats = sampler.run()
+
+        def untimed(text):
+            return [ln for ln in text.splitlines() if "time" not in ln and "latency" not in ln]
+
+        def outputs(d):
+            rows = (d / "read_until_decision_stats.csv").read_text().splitlines()
+            return ([r.rsplit(";", 1)[0] for r in rows], (d / "TargetReads.fasta").read_text(),
+                    (d / "DepletedReads.fasta").read_text())
+
+        cli_report = proc.stdout[proc.stdout.index("-" * 99):proc.stdout.index("Real time")]
+        check(untimed(cli_report) == untimed(stats.report() + "\n"),
+              f"CLI target counters differ from the in-process run:\n{cli_report}\n{stats.report()}")
+        check(outputs(td / "cli") == outputs(td / "inproc"), "CLI target outputs differ from the in-process run")
+        check(stats.unblocked + stats.stop_received == CLI_LIVE_READS and stats.unclassified == 0,
+              f"CLI target: {stats.unblocked} + {stats.stop_received} of {CLI_LIVE_READS}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "readbouncer_tpu_torch", "--config", str(config("conn", "test"))],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+        )
+        check(proc.returncode == 0 and "successful" in proc.stdout
+              and f"{CLI_LIVE_READS} chunks in first window" in proc.stdout,
+              f"CLI test exited {proc.returncode}: {proc.stdout[-1000:]} {proc.stderr[-1000:]}")
+    say(
+        f"cli live: python -m readbouncer_tpu_torch target (DeepNano, synth48) on {CLI_LIVE_READS} reads: "
+        f"unblocked {stats.unblocked}, stop_receiving {stats.stop_received}; FASTAs, decision CSV and "
+        f"counters equal to the in-process run; usage test reports {CLI_LIVE_READS} chunks"
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    torch.set_float32_matmul_precision("highest")  # the reference's precision="highest"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_all = time.monotonic()
 
     t0 = time.monotonic()
@@ -481,7 +866,12 @@ def main() -> int:
     say(f"reads: bench.py's {len(seqs)} reads of {READ_LEN} bp: {time.monotonic() - t0:.2f} s")
 
     t0 = time.monotonic()
-    kern = phase_kernels(engine, seqs)
+    workload = live_workload(genomes)
+    live_seqs = [seq for _, _, seq, _ in workload]
+    say(f"live reads: bench_live's {len(workload)} reads of {LIVE_READ_LEN} bp: {time.monotonic() - t0:.2f} s")
+
+    t0 = time.monotonic()
+    kern = phase_kernels(engine, seqs, live_seqs)
     say(f"kernels phase: {time.monotonic() - t0:.2f} s")
 
     t0 = time.monotonic()
@@ -492,27 +882,64 @@ def main() -> int:
     phase_profile(engine, seqs)
     say(f"profile phase: {time.monotonic() - t0:.2f} s")
 
-    t0 = time.monotonic()
-    phase_cli(filters, seqs, classified, best)
-    say(f"cli phase: {time.monotonic() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as filter_dir:
+        t0 = time.monotonic()
+        paths = save_filters(filters, Path(filter_dir))
+        phase_cli(paths, filters, seqs, classified, best)
+        say(f"cli phase: {time.monotonic() - t0:.2f} s")
 
-    src = "readbouncer_tpu_torch/ops/csrc/ibf_count.cu"
-    replaces = {
-        "K1": ("accumulate_planes", "readbouncer_tpu/ops/ibf_count_pallas.py:109"),
-        "K2": ("planes_dual_max", "readbouncer_tpu/ops/ibf_count_pallas.py:200"),
-    }
+        t0 = time.monotonic()
+        gru = phase_gru(dev, workload)
+        say(f"gru phase: {time.monotonic() - t0:.2f} s")
+
+        live = {}
+        for caller in ("synth48", "oracle"):
+            t0 = time.monotonic()
+            live[caller] = phase_live(dev, filters, workload, caller)
+            say(f"live phase ({caller}): {time.monotonic() - t0:.2f} s")
+
+        t0 = time.monotonic()
+        phase_cli_live(Path(filter_dir), dev, workload)
+        say(f"cli live phase: {time.monotonic() - t0:.2f} s")
+
+    paths_launched = {"classify": launches, "live_synth48": live["synth48"]["launches"],
+                      "live_oracle": live["oracle"]["launches"]}
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     rows = []
-    for k, (name, where) in replaces.items():
+    for k, name, where in (
+        ("K1", "accumulate_planes", "readbouncer_tpu/ops/ibf_count_pallas.py:109"),
+        ("K2", "planes_dual_max", "readbouncer_tpu/ops/ibf_count_pallas.py:200"),
+    ):
         d = kern[(k, "A")]
-        b = kern[(k, "B")]
         rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": where,
-            "launches": launches[k], "max_abs_err": max(d["max_abs_err"], b["max_abs_err"]),
+            "name": name, "route": "cuda", "source": "readbouncer_tpu_torch/ops/csrc/ibf_count.cu",
+            "replaces": where, "launches": launches[k],
+            "max_abs_err": max(kern[(k, lab)]["max_abs_err"] for lab in "ABL"),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None, "shape": d["shape"],
-            "phase_b": {key: b[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "phase_b": {key: kern[(k, "B")][key] for key in keys},
+            "live_short_bucket": {key: kern[(k, "L")][key] for key in keys},
+            "launches_by_path": {path: n[k] for path, n in paths_launched.items()},
         })
-    say(f"total: {time.monotonic() - t_all:.1f} s; main path {len(seqs) / dt:.0f} reads/s")
+    d = gru["B256"]
+    rows.append({
+        "name": "gru_layer", "route": "cuda", "source": "readbouncer_tpu_torch/ops/csrc/gru.cu",
+        "replaces": "readbouncer_tpu/ops/gru_pallas.py:38",
+        "launches": live["synth48"]["launches"]["K3"],
+        "max_abs_err": max(gru[c]["max_abs_err"] for c in ("B256", "B512", "H96")),
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "library_ms": d["library_ms"], "shape": d["shape"],
+        "library": "torch.nn.GRU(48, 48, batch_first=True) on cuDNN, input projection included",
+        "b512": {key: gru["B512"][key] for key in keys + ("library_ms",)},
+        "h96": {key: gru["H96"][key] for key in keys + ("library_ms",)},
+        "launches_per_tick": gru["launches_per_tick"],
+        "logits_max_abs_err": gru["logits_max_abs_err"], "tokens_differ": gru["tokens_differ"],
+        "launches_by_path": {path: n["K3"] for path, n in paths_launched.items()},
+    })
+    live_line = {c: {k: v for k, v in d.items() if k != "launches"} for c, d in live.items()}
+    say(f"live: {json.dumps(live_line)}")
+    say(f"total: {time.monotonic() - t_all:.1f} s; main path {len(seqs) / dt:.0f} reads/s; live p50 "
+        f"{live['synth48']['p50_ms']:.2f} ms per tick (synth48)")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({

@@ -7,10 +7,11 @@ output FASTAs, counters).  It imports ``torch`` and numpy and nothing of
 the JAX package: host modules it needs are copied, not imported.
 
 Layout mirrors the JAX package, so each counterpart has the same module
-name.  The two Pallas kernels of the IBF query
-(``readbouncer_tpu/ops/ibf_count_pallas.py``) are CUDA C++ kernels in
-``ops/csrc/ibf_count.cu``, built with ``nvcc`` on first use and bound
-with ``ctypes`` (``ops/_build.py``).
+name.  The Pallas kernels on the ported paths are CUDA C++ kernels under
+``ops/csrc/``: the IBF query's two (``ibf_count.cu``, for
+``readbouncer_tpu/ops/ibf_count_pallas.py``) and the GRU recurrence
+(``gru.cu``, for ``readbouncer_tpu/ops/gru_pallas.py``), each built with
+``nvcc`` on first use and bound with ``ctypes`` (``ops/_build.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.resolve_device``); without a card and without that explicit

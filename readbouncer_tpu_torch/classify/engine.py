@@ -36,7 +36,7 @@ from readbouncer_tpu_torch.classify.fused import (
     plan_stacks,
     unpack_results_np,
 )
-from readbouncer_tpu_torch.device import resolve_device
+from readbouncer_tpu_torch.device import resolve_device, upload
 from readbouncer_tpu_torch.errors import EmptyFilterError
 from readbouncer_tpu_torch.fastio.fasta import FastaWriter, read_records
 from readbouncer_tpu_torch.ibf.hashing import _BASE_LUT
@@ -117,10 +117,7 @@ class _Transfer:
         self.cuda = device.type == "cuda"
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.cuda:
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return upload(arr, self.device)
 
     def get(self, tensors: list[torch.Tensor]) -> np.ndarray:
         """Concatenate device tensors and fetch them in one copy."""

@@ -15,7 +15,9 @@ programs per shape, this module has plain functions over tensors.
   thresholds (K2);
 * ``plan_stacks``: target and deplete stacks merged into one;
 * ``FusedClassifier``: the batch body, reads -> (classified, best,
-  attempts).
+  attempts);
+* ``live_decisions`` and ``LiveFused``: the live loop's check_unblock for
+  a batch of reads of one bucket width, reads -> 0/1/2 decisions.
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ __all__ = [
     "threshold_table",
     "best_filter_index",
     "classify_decisions",
+    "live_decisions",
     "stack_dual_max",
     "plan_stacks",
     "FusedClassifier",
+    "LiveFused",
 ]
 
 
@@ -90,6 +94,56 @@ def classify_decisions(t_base, d_base, t_retry, d_retry):
         best = best_filter_index(t_base)
         return best != -1, best
     raise ValueError("no filters provided")
+
+
+def live_decisions(d_base, t_base, d_retry, t_retry) -> torch.Tensor:
+    """Device port of the reference's policy.live_decisions: int32 [R] decisions,
+    0 continue / 1 unblock / 2 stop_receiving (None or 0-wide = no filters
+    of that kind)."""
+    have_t = t_base is not None and t_base.shape[1] > 0
+    have_d = d_base is not None and d_base.shape[1] > 0
+    if have_t and have_d:
+        dmax, tmax = d_base.amax(dim=1), t_base.amax(dim=1)
+        dmax2, tmax2 = d_retry.amax(dim=1), t_retry.amax(dim=1)
+        out = torch.zeros(dmax.shape[0], dtype=torch.int32, device=dmax.device)
+        out = torch.where((dmax > 0) & (tmax == 0), 1, out)
+        both = (dmax > 0) & (tmax > 0)
+        out = torch.where(both & (dmax2 > 0) & (tmax2 == 0), 1, out)
+        out = torch.where((dmax == 0) & (tmax > 0), 2, out)
+        return out.to(torch.int32)
+    if have_d:
+        return (d_base.amax(dim=1) > 0).to(torch.int32)
+    if have_t:
+        return torch.where(t_base.amax(dim=1) > 0, 2, 1).to(torch.int32)
+    raise ValueError("no filters provided")
+
+
+def _threshold_tabs(targets, depletes, max_len, error_rate, significance, device):
+    """int32 threshold tables by chunk length at the base and retry rates:
+    keys tb, tr (targets) and db, dr (depletes)."""
+    tabs = {}
+    for name, stack in (("t", targets), ("d", depletes)):
+        if stack is None:
+            continue
+        for suffix, rate in (("b", error_rate), ("r", error_rate - 0.02)):
+            tab = threshold_table(max_len, stack.kmer_size, rate, significance)
+            tabs[name + suffix] = torch.from_numpy(tab.astype(np.int32)).to(device)
+    return tabs
+
+
+def _dual_maxima(targets, depletes, plan, frags, lens, tabs):
+    """(t_b, d_b, t_r, d_r) per-filter maxima of one batch, through the
+    merged stack where the plan has one (one K1 and one K2 launch)."""
+    combined, n_targets = plan
+    t_b = t_r = d_b = d_r = None
+    if combined is not None:
+        mb, mr = stack_dual_max(combined, frags, lens, tabs["tb"], tabs["tr"])
+        return mb[:, :n_targets], mb[:, n_targets:], mr[:, :n_targets], mr[:, n_targets:]
+    if targets is not None:
+        t_b, t_r = stack_dual_max(targets, frags, lens, tabs["tb"], tabs["tr"])
+    if depletes is not None:
+        d_b, d_r = stack_dual_max(depletes, frags, lens, tabs["db"], tabs["dr"])
+    return t_b, d_b, t_r, d_r
 
 
 def stack_dual_max(stack: FilterStack, frags, lens, tab_base, tab_retry):
@@ -151,13 +205,7 @@ class FusedClassifier:
         self.attempt_offset = attempt_offset
         self.plan = plan if plan is not None else plan_stacks(targets, depletes)
         dev = (targets or depletes).device
-        self.tabs = {}
-        for name, stack in (("t", targets), ("d", depletes)):
-            if stack is None:
-                continue
-            for suffix, rate in (("b", error_rate), ("r", error_rate - 0.02)):
-                tab = threshold_table(chunk_length, stack.kmer_size, rate, significance)
-                self.tabs[name + suffix] = torch.from_numpy(tab.astype(np.int32)).to(dev)
+        self.tabs = _threshold_tabs(targets, depletes, chunk_length, error_rate, significance, dev)
 
     def __call__(self, reads: torch.Tensor, lengths: torch.Tensor):
         cl, C = self.cl, self.C
@@ -166,18 +214,9 @@ class FusedClassifier:
         steps = torch.arange(C, device=reads.device, dtype=torch.int64) * cl
         clens = torch.clamp(lengths.to(torch.int64)[:, None] - steps[None, :], 0, cl)
         lens_flat = clens.reshape(-1)
-        combined, n_targets = self.plan
-        tabs = self.tabs
-        t_b = t_r = d_b = d_r = None
-        if combined is not None:
-            mb, mr = stack_dual_max(combined, frags, lens_flat, tabs["tb"], tabs["tr"])
-            t_b, d_b = mb[:, :n_targets], mb[:, n_targets:]
-            t_r, d_r = mr[:, :n_targets], mr[:, n_targets:]
-        else:
-            if self.targets is not None:
-                t_b, t_r = stack_dual_max(self.targets, frags, lens_flat, tabs["tb"], tabs["tr"])
-            if self.depletes is not None:
-                d_b, d_r = stack_dual_max(self.depletes, frags, lens_flat, tabs["db"], tabs["dr"])
+        t_b, d_b, t_r, d_r = _dual_maxima(
+            self.targets, self.depletes, self.plan, frags, lens_flat, self.tabs
+        )
         ok_flat, best_flat = classify_decisions(t_b, d_b, t_r, d_r)
         ok = ok_flat.reshape(R, C)
         best = best_flat.reshape(R, C)
@@ -189,3 +228,32 @@ class FusedClassifier:
         attempts = torch.where(classified, first + 1 + off, avail + off).to(torch.int32)
         best_read = torch.where(classified, best_read, torch.full_like(best_read, -1))
         return classified, best_read, attempts
+
+
+class LiveFused:
+    """The live check_unblock for one bucket width (the reference's
+    make_fused_live_fn): ``__call__(reads [R, max_seq_len] u8, lengths
+    [R])`` -> int32 [R] decisions on the device, through K1 -> K2 on the
+    merged stack where ``plan`` has one.  Thresholds come from tables at
+    ``error_rate`` and ``error_rate - 0.02``; lengths are clipped to
+    ``max_seq_len``."""
+
+    def __init__(
+        self,
+        targets: FilterStack | None,
+        depletes: FilterStack | None,
+        max_seq_len: int,
+        error_rate: float,
+        significance: float,
+        plan=None,
+    ):
+        self.targets, self.depletes = targets, depletes
+        self.max_seq_len = max_seq_len
+        self.plan = plan if plan is not None else plan_stacks(targets, depletes)
+        dev = (targets or depletes).device
+        self.tabs = _threshold_tabs(targets, depletes, max_seq_len, error_rate, significance, dev)
+
+    def __call__(self, reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        lens = torch.clamp(lengths.to(torch.int64), max=self.max_seq_len)
+        t_b, d_b, t_r, d_r = _dual_maxima(self.targets, self.depletes, self.plan, reads, lens, self.tabs)
+        return live_decisions(d_b, t_b, d_r, t_r)

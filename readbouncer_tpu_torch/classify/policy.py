@@ -1,7 +1,8 @@
 """Classification decision policies, vectorized over read batches.
 
-A copy of readbouncer_tpu/classify/policy.py (numpy; the device ports
-of these policies live in classify/fused.py).
+A copy of readbouncer_tpu/classify/policy.py's classify policy and
+decision codes (numpy; the device ports of both policies, classify and
+live, are in classify/fused.py).
 
 Inputs are per-(read, filter) maximum matched k-mer counts (from
 ``FilterStack.max_counts``) evaluated at two error rates: the configured
@@ -26,7 +27,17 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["best_filter_index", "classify_decisions"]
+__all__ = [
+    "best_filter_index",
+    "classify_decisions",
+    "DECISION_NONE",
+    "DECISION_UNBLOCK",
+    "DECISION_STOP_RECEIVING",
+]
+
+DECISION_NONE = 0
+DECISION_UNBLOCK = 1
+DECISION_STOP_RECEIVING = 2
 
 
 def best_filter_index(counts: np.ndarray) -> np.ndarray:
@@ -79,3 +90,4 @@ def classify_decisions(
         best = best_filter_index(target_base)
         return best != -1, best
     raise ValueError("no filters provided")
+

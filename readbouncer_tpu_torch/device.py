@@ -8,9 +8,10 @@ entry point never carries on quietly on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "upload"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -27,3 +28,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "run on the CPU"
         )
     return dev
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: on CUDA through pinned
+    memory, copied without blocking the host; on the CPU without a copy."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

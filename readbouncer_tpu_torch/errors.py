@@ -20,6 +20,8 @@ __all__ = [
     "FilterGeometryError",
     "ConfigError",
     "MissingInputError",
+    "WeightsError",
+    "BasecallerError",
 ]
 
 
@@ -66,3 +68,13 @@ class ConfigError(ReadBouncerError, ValueError):
 
 class MissingInputError(ConfigError):
     """Required input files absent (MissingReferenceFilesException analog)."""
+
+
+class WeightsError(ReadBouncerError, ValueError):
+    """Basecaller weight file missing or malformed."""
+
+
+class BasecallerError(ReadBouncerError, RuntimeError):
+    """Basecaller failure (reference: BasecallerException,
+    src/basecaller/Basecaller.hpp:30-55): remote server unreachable,
+    connection dropped, or malformed response."""

@@ -56,7 +56,7 @@ def _raise_on(err: int, what: str) -> None:
     if err != 0:
         from readbouncer_tpu_torch.ops._build import error_string
 
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({error_string(err)})")
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({error_string(err, 'ibf_count')})")
 
 
 # --------------------------------------------------------------------- K1
@@ -84,7 +84,7 @@ def accumulate_planes(a: torch.Tensor, n_planes: int) -> torch.Tensor:
         return out.zero_()
     from readbouncer_tpu_torch.ops._build import load_library
 
-    lib = load_library().lib
+    lib = load_library("ibf_count").lib
     with torch.cuda.device(a.device):
         err = lib.rb_accumulate_planes(
             ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(out.data_ptr()),
@@ -180,7 +180,7 @@ def planes_dual_max(
     from readbouncer_tpu_torch.ops._build import load_library
 
     table = (ctypes.c_int * (2 * F))(*[v for pair in seg for v in pair])
-    lib = load_library().lib
+    lib = load_library("ibf_count").lib
     with torch.cuda.device(planes.device):
         err = lib.rb_planes_dual_max(
             ctypes.c_void_p(planes.data_ptr()), ctypes.c_void_p(thr_b.data_ptr()),

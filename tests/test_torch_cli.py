@@ -1,7 +1,9 @@
 """``python -m readbouncer_tpu_torch`` against ``python -m readbouncer_tpu``
 on one small config: the same TOML file over the same .ribf filters, the
 same output FASTAs and counters.  The usages not ported yet, and FASTA
-filter inputs to ``classify``, exit 2 naming their ROADMAP item."""
+filter inputs to ``classify``, exit 2 naming their ROADMAP item.  The
+live usages (``target``, ``test``) are held against the JAX CLI in
+tests/test_torch_cli_live.py."""
 
 import logging
 import os
@@ -119,9 +121,7 @@ def test_cli_fasta_filter_inputs_exit_nonzero(world, capsys):
     assert not (td / "out_fasta" / "target.fasta").exists()
 
 
-@pytest.mark.parametrize(
-    "usage,item", [("build", "M13"), ("update", "M12"), ("target", "M7"), ("test", "M7")]
-)
+@pytest.mark.parametrize("usage,item", [("build", "M13"), ("update", "M12")])
 def test_cli_unported_usages_exit_nonzero(world, capsys, usage, item):
     td = world
     extra = f'update_filter = "{td}/target.ribf"\n' if usage == "update" else ""

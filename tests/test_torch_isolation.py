@@ -3,7 +3,8 @@
 * Under an import hook that refuses ``jax``, ``jaxlib`` and
   ``readbouncer_tpu`` (that package and its submodules, not
   ``readbouncer_tpu_torch``), every module of the port and
-  ``chip_smoke`` import, and a tiny classify runs with ``device="cpu"``.
+  ``chip_smoke`` import, and a tiny classify and a tiny live run with the
+  GRU caller run with ``device="cpu"``.
 * Without a CUDA card ``chip_smoke.py`` exits non-zero without printing
   a result, also when it is alone in a directory.
 
@@ -57,6 +58,19 @@ BLOCKED_RUN = textwrap.dedent(
     reads = [genome[100:700], "".join("ACGT"[i] for i in rng.integers(0, 4, 600))]
     classified, best, attempts = engine.classify_sequences(reads)
     assert classified.tolist() == [True, False], classified
+    import tempfile
+    from readbouncer_tpu_torch.models.basecaller import GRUBasecaller
+    from readbouncer_tpu_torch.stream.replay import ReplayRead, ReplaySource, sequence_to_signal
+    from readbouncer_tpu_torch.stream.scheduler import AdaptiveSampler, LiveClassifier, LiveConfig
+
+    seq = genome[200:2000]
+    src = ReplaySource(reads=[ReplayRead("on", sequence_to_signal(seq, rng=rng), seq)], channels=1)
+    cfg = LiveConfig(batch_size=8)
+    caller = GRUBasecaller(network="synth48", max_frames=320, device="cpu")
+    with tempfile.TemporaryDirectory() as td:
+        sampler = AdaptiveSampler(src, caller, LiveClassifier([ibf], [], cfg, device="cpu"), td, cfg)
+        stats = sampler.run(max_ticks=20)
+    assert (stats.stop_received, stats.unblocked) == (1, 0), stats.report()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ISOLATED", len(names))
@@ -73,7 +87,7 @@ def test_port_imports_and_runs_with_jax_and_reference_blocked():
     proc = _run([sys.executable, "-c", BLOCKED_RUN], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED" in proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 20  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 30  # every module of the port was imported
 
 
 def test_blocker_really_blocks_the_reference():
