@@ -12,14 +12,18 @@ its plain version:
 * the live target loop at scripts/bench_live.py's workload: 2,048 reads
   of 4 kb (1,024 from genome 0, a target, and 1,024 from genome 3, the
   depletion genome) replayed over 512 channels, basecalled by the trained
-  synth48 GRU and decided against the same four filters.
+  synth48 GRU and decided against the same four filters;
+* the filter-building usages (``build``, ``update``, FASTA filter inputs)
+  on the bench genomes, and the two tools that reach the last two
+  kernels: the realistic-geometry profile (K4, the v1 per-bin count
+  accumulation) and the gather probe (K5).
 
 Phases:
 
 1. card   — name and power limit (nvidia-smi), torch and CUDA versions;
-2. build  — nvcc builds ops/csrc/ibf_count.cu and ops/csrc/gru.cu, one
-            process each, at once (seconds), with the -Xptxas -v register /
-            shared-memory / spill lines;
+2. build  — nvcc builds every ops/csrc/*.cu (ibf_count, gru,
+            gather_probe), one process each, at once (seconds), with the
+            -Xptxas -v register / shared-memory / spill lines;
 3. state  — the four bench genomes regenerated from bench.py's seeds
             (sha256 equal to the tracked .bench_cache FASTAs), the four
             filters built on the card (bits sha256 equal to the tracked
@@ -30,6 +34,10 @@ Phases:
             inputs of that stack at the phase-A and phase-B shapes of
             classify and the short bucket of the live loop, bit-equal to
             their plain versions, timed with CUDA events;
+   counts — K4 (accumulate_counts) on the v1 input of 2,048 bench-read
+            chunks of 250 bp ([72, 256, 4096], 302 MB): bit-equal to its
+            plain version, and reshaped equal to the K1 route's counts of
+            the same reads; timed on it and on zeros;
 5. main   — ClassifyEngine on the read set, pipelined as bench.py runs
             it: exactly 20,493 of 40,960 reads classified, both kernel
             counters > 0, 256 reads' decisions equal to the numpy oracle,
@@ -37,7 +45,18 @@ Phases:
    profile — host encode time and one host batch under torch.profiler
             (device busy share, top kernels); informational;
 6. cli    — `python -m readbouncer_tpu_torch --config` on 2,048 of the
-            reads: output FASTAs and counters equal to the in-process run;
+            reads: output FASTAs and counters equal to the in-process run,
+            over the .ribf filters and again over the genome FASTAs
+            (which the CLI builds on the card);
+   cli build/update — usage build on genome 3's FASTA: the bits' sha256
+            equals the tracked filter's (and the build's time and peak
+            device memory in-process); usage update of genome 0's filter
+            with genome 1's FASTA: the old bins equal genome 0's filter,
+            new bin 512 + j equals bin j of genome 1's, seqids and ranges
+            appended;
+   tool profile — `python -m readbouncer_tpu_torch.tools.profile_realistic`
+            over the saved filters (nothing rebuilt): exits 0, K1 and K4
+            launched;
 7. gru    — K3 (gru_layer) against its plain version on the live path's
             real gate inputs (chunk signals framed and projected through
             synth48's layer 0) at B=256 and 512, T=320, H=48, both scan
@@ -52,7 +71,13 @@ Phases:
 9. cli live — `python -m readbouncer_tpu_torch` usage target (DeepNano
             caller, synth48) on a small replay FASTA: output FASTAs,
             decision CSV (less its timing column) and counters equal to
-            an in-process run; usage test.
+            an in-process run; usage test;
+10. gather — K5 (xor_gather) at the gather probe's --check shapes against
+            numpy, and at its defaults (974,848 indices, CH=2048, NBUF=8) on
+            [154,533, 8, 128] blocks and [1,236,269, 1, 128] rows bit-equal
+            to its plain version, timed beside PyTorch's index_select
+            baselines (torch_block, torch_g3); then the probe tool's four
+            experiments and --check in-process, which must return 0.
 
 Prints one line per phase with its seconds, a JSON line with the
 kernels' numbers, the card line, and last
@@ -80,20 +105,22 @@ from readbouncer_tpu_torch.classify.fused import LiveFused
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.classify.policy import classify_decisions
 from readbouncer_tpu_torch.config import ConfigReader
-from readbouncer_tpu_torch.ibf.build import build_ibf_records
+from readbouncer_tpu_torch.ibf.build import build_ibf, build_ibf_records
 from readbouncer_tpu_torch.ibf.hashing import encode_bases
 from readbouncer_tpu_torch.ibf.params import IBFParams
-from readbouncer_tpu_torch.ibf.query import anded_windows
+from readbouncer_tpu_torch.ibf.query import anded_windows, counts
 from readbouncer_tpu_torch.ibf.query_np import counts_np
 from readbouncer_tpu_torch.ibf.storage import IBFData
 from readbouncer_tpu_torch.main import live_config, make_basecaller, make_replay_source
 from readbouncer_tpu_torch.models.basecaller import GRUBasecaller
 from readbouncer_tpu_torch.models.gru import frame_signal_t, gru_logits
+from readbouncer_tpu_torch.ops import gather
 from readbouncer_tpu_torch.ops import gru as gru_ops
 from readbouncer_tpu_torch.ops import ibf_count
 from readbouncer_tpu_torch.ops._build import load_all, load_library
 from readbouncer_tpu_torch.stream.replay import NearestLevelBasecaller, ReplayRead, ReplaySource, sequence_to_signal
 from readbouncer_tpu_torch.stream.scheduler import AdaptiveSampler, LiveClassifier, LiveConfig
+from readbouncer_tpu_torch.tools import dma_gather_probe
 
 ROOT = Path(__file__).resolve().parent
 
@@ -136,9 +163,16 @@ LIVE_FRAMES = 320  # frames of a 0.4 s chunk, (1600 - 66) // 5 + 1 = 307, padded
 TICK_BUDGET_S = 0.4  # break_reads_after_seconds
 CLI_LIVE_READS = 64
 # int32 ALU rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (the fp32 rate
-# of 67 TFLOP/s counts 128 lanes and an FMA as two operations); both
+# of 67 TFLOP/s counts 128 lanes and an FMA as two operations); the IBF
 # kernels' least work is far below it, so their bound is the bytes
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# scripts/profile_realistic.py's batch: 2,048 reads of one 250 bp chunk
+COUNTS_READS = 2_048
+COUNTS_CHUNK = 250
+# scripts/dma_gather_probe.py's defaults
+GATHER_M = 2048 * 2 * 238
+GATHER_CH = 2048
+GATHER_NBUF = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -306,6 +340,14 @@ def live_kernel_inputs(engine: ClassifyEngine, live_seqs: list[str]):
     return _anded_inputs(engine, enc, lens, live.tabs["tb"], live.tabs["tr"])
 
 
+def _bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time for moving ``nbytes`` and doing ``ops`` int32
+    operations, and which of the two sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels(engine: ClassifyEngine, seqs: list[str], live_seqs: list[str]) -> dict:
     """K1 and K2 against their plain versions at classify's phase-A and
     phase-B shapes and at the live short bucket ("L"); returns per-kernel
@@ -362,16 +404,60 @@ def phase_kernels(engine: ClassifyEngine, seqs: list[str], live_seqs: list[str])
         )
         for kname in ("K1", "K2"):
             d = out[(kname, label)]
-            t_bytes = d["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = d["ops"] / INT32_OPS_PER_S * 1e3
-            d["bound_ms"] = max(t_bytes, t_ops)
-            d["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            d["bound_ms"], d["bound_by"] = _bound(d["bytes"], d["ops"])
             say(
                 f"  {kname} shape {label}: {d['shape']}: kernel {d['ms']:.4f} ms, plain "
                 f"{d['plain_ms']:.3f} ms, bound {d['bound_ms'] * 1e3:.1f} us ({d['bound_by']}: "
                 f"{d['bytes'] / 1e6:.1f} MB, {d['ops'] / 1e6:.0f} M int ops), bit-equal"
             )
     return out
+
+
+def phase_counts(engine: ClassifyEngine, seqs: list[str]) -> dict:
+    """K4 on the v1 input of profile_realistic's geometry, built for real:
+    bench reads' first 250 bp chunks, anded windows of the bench stack,
+    transposed to [W, n_pad, 2R] with the padded windows zero."""
+    stack, _ = engine._plan
+    dev = engine.device
+    reads, lens = encode_batch(seqs[:COUNTS_READS], COUNTS_CHUNK)
+    reads_t, lens_t = torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+    kw = dict(k=stack.kmer_size, h=stack.hash_functions, rows=stack.rows, scheme=stack.scheme)
+    n = COUNTS_CHUNK - stack.kmer_size + 1
+    n_pad = ibf_count.counts_v1_n_pad(n)
+    a_t = ibf_count.counts_v1_input(anded_windows(stack.bits, reads_t, lens_t, **kw), n_pad)
+    check(tuple(a_t.shape) == (72, 256, 2 * COUNTS_READS), f"K4 input {tuple(a_t.shape)}")
+    got = ibf_count.accumulate_counts(a_t)
+    plain = ibf_count.accumulate_counts_plain(a_t)
+    k1_route = counts(stack.bits, reads_t, lens_t, **kw)
+    torch.cuda.synchronize()
+    err = int((got - plain).abs().max())
+    check(torch.equal(got, plain), f"K4 differs from its plain version (max abs err {err})")
+    check(torch.equal(ibf_count.counts_from_v1(got), k1_route), "K4 reshaped differs from the K1 route's counts")
+    zeros = torch.zeros_like(a_t)
+    # the least work of the function: each membership word read once and
+    # added into bit-sliced counters (2 ops, as K1 counts it), and each of
+    # the W*32*2R counts written once after an expansion of its P planes
+    P = max(int(n).bit_length(), 1)
+    nbytes = a_t.numel() * 4 + got.numel() * 4
+    ops = 2 * a_t.numel() + 2 * P * got.numel()
+    bound_ms, bound_by = _bound(nbytes, ops)
+    d = dict(
+        shape=f"a_t int32 {list(a_t.shape)} -> counts int32 {list(got.shape)}",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ibf_count.accumulate_counts(a_t), 20),
+        zeros_ms=cuda_ms(lambda: ibf_count.accumulate_counts(zeros), 20),
+        plain_ms=cuda_ms(lambda: ibf_count.accumulate_counts_plain(a_t), 2, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by,
+        nonzero_words=float((a_t != 0).float().mean()),
+    )
+    say(
+        f"counts: K4 {d['shape']} on {COUNTS_READS} bench-read chunks of {COUNTS_CHUNK} bp "
+        f"({100 * d['nonzero_words']:.2f}% of words non-zero): kernel {d['ms']:.4f} ms (zeros "
+        f"{d['zeros_ms']:.4f} ms), plain {d['plain_ms']:.3f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.0f} M int ops); bit-equal to its plain version and, "
+        f"reshaped, to the K1 route's counts"
+    )
+    return d
 
 
 def oracle_decisions(filters: list[IBFData], seq: str, cl: int, C: int):
@@ -489,7 +575,10 @@ def save_filters(filters, filter_dir: Path) -> list[Path]:
     return paths
 
 
-def phase_cli(paths: list[Path], filters, seqs, classified, best) -> None:
+def phase_cli(paths: list[Path], filters, seqs, classified, best, inputs: str = ".ribf filters") -> None:
+    """usage classify through the CLI on CLI_READS reads, over ``paths``
+    (the saved filters, or the genome FASTAs the CLI builds first), against
+    the in-process run."""
     n = CLI_READS
     with tempfile.TemporaryDirectory() as td:
         td = Path(td)
@@ -524,7 +613,111 @@ def phase_cli(paths: list[Path], filters, seqs, classified, best) -> None:
         # 1 kb reads are below (max_chunks-1)*chunk_length + k: an
         # unclassified one counts as failed and is written nowhere
         check((out_dir / "unclassified.fasta").read_text() == "", "unclassified.fasta not empty")
-        say(f"cli: python -m readbouncer_tpu_torch classified {want_found}/{n}; FASTAs and counters equal")
+        say(f"cli: python -m readbouncer_tpu_torch over the {inputs} classified {want_found}/{n}; "
+            f"FASTAs and counters equal to the in-process run")
+
+
+def write_genomes(genomes: list[np.ndarray], d: Path) -> list[Path]:
+    """The bench genomes as FASTA files named as the reference caches them."""
+    paths = []
+    for i, g in enumerate(genomes):
+        paths.append(d / f"{bench_name(i)}.fasta")
+        paths[-1].write_bytes(b">" + bench_name(i).encode() + b"\n" + g.tobytes() + b"\n")
+    return paths
+
+
+def run_cli(cfg: Path, what: str) -> subprocess.CompletedProcess:
+    proc = subprocess.run(
+        [sys.executable, "-m", "readbouncer_tpu_torch", "--config", str(cfg)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True, text=True, timeout=600,
+    )
+    check(proc.returncode == 0, f"CLI {what} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc
+
+
+def _real_time(stdout: str) -> float:
+    m = re.search(r"Real time : ([0-9.]+) sec", stdout)
+    check(m is not None, "no resource report in the CLI output")
+    return float(m.group(1))
+
+
+def phase_cli_build(dev, genome_paths: list[Path], filters, filter_dir: Path) -> dict:
+    """usage build on genome 3's FASTA (and the same build in-process, for
+    its peak device memory), and usage update of genome 0's filter with
+    genome 1's FASTA."""
+    params = IBFParams(kmer_size=13, fragment_length=FRAGMENT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ibf, stats = build_ibf([genome_paths[3]], params, name=bench_name(3), device=dev)
+    torch.cuda.synchronize()
+    d = dict(build_s=time.monotonic() - t0, build_peak_bytes=torch.cuda.max_memory_allocated())
+    check(np.array_equal(ibf.bits, filters[3].bits), "build_ibf on the FASTA differs from the records build")
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        cfg = td / "build.toml"
+        cfg.write_text(
+            f'usage = "build"\noutput_directory = "{td / "out"}"\nlog_directory = "{td / "log"}"\n\n'
+            f'[IBF]\nkmer_size = 13\nfragment_size = {FRAGMENT}\ntarget_files = ["{genome_paths[3]}"]\n'
+        )
+        proc = run_cli(cfg, "build")
+        built = IBFData.load(td / "out" / f"{bench_name(3)}.ribf")
+        digest = hashlib.sha256(built.bits.tobytes()).hexdigest()
+        check(digest == BITS_SHA[3], f"usage build: bits sha256 {digest} is not the tracked filter's")
+        check(built.bin_seqids == filters[3].bin_seqids and np.array_equal(built.bin_ranges, filters[3].bin_ranges),
+              "usage build: bin seqids or ranges differ")
+        d["cli_build_s"] = _real_time(proc.stdout)
+
+        g0, g1 = filters[0], filters[1]
+        cfg = td / "update.toml"
+        cfg.write_text(
+            f'usage = "update"\noutput_directory = "{td / "upd"}"\nlog_directory = "{td / "log"}"\n\n'
+            f'[IBF]\nkmer_size = 13\ntarget_files = ["{genome_paths[1]}"]\n'
+            f'update_filter = "{filter_dir / f"{g0.name}.ribf"}"\n'
+        )
+        proc = run_cli(cfg, "update")
+        upd = IBFData.load(td / "upd" / f"{g0.name}.ribf")
+        d["cli_update_s"] = _real_time(proc.stdout)
+    old = g0.num_bins
+    check(old % 32 == 0 and upd.num_bins == old + g1.num_bins, f"usage update: {upd.num_bins} bins")
+    # each bin's column depends only on its own fragment, and the new bins
+    # start on a word boundary (512 = 16 words): old bins are genome 0's
+    # filter, new bin old + j is bin j of genome 1's, the rest is zero
+    w_old, w_new = old // 32, g1.num_bins // 32
+    check(np.array_equal(upd.bits[:, :w_old], g0.bits[:, :w_old]), "usage update: old bins changed")
+    check(np.array_equal(upd.bits[:, w_old : w_old + w_new], g1.bits[:, :w_new]),
+          "usage update: new bins differ from genome 1's filter")
+    check(not upd.bits[:, w_old + w_new :].any(), "usage update: bits past the new bins")
+    check(upd.bin_seqids == g0.bin_seqids + g1.bin_seqids, "usage update: bin seqids not appended")
+    check(np.array_equal(upd.bin_ranges, np.concatenate([g0.bin_ranges, g1.bin_ranges])),
+          "usage update: bin ranges not appended")
+    say(
+        f"cli build/update: build_ibf on genome 3's FASTA ({stats.sum_seq_len / 1e6:.1f} Mb) "
+        f"{d['build_s']:.2f} s, peak device memory {d['build_peak_bytes'] / 1e9:.3f} GB; usage build "
+        f"{d['cli_build_s']:.2f} s (the CLI's real time), bits sha256 equal to the tracked filter; usage "
+        f"update of {g0.name} with genome 1 {d['cli_update_s']:.2f} s: {upd.num_bins} bins, old bins equal, "
+        f"new bin {old} + j equals bin j of {g1.name}, seqids and ranges appended"
+    )
+    return d
+
+
+def phase_tool_profile(filter_dir: Path) -> dict:
+    """tools/profile_realistic.py over the saved bench filters (nothing is
+    rebuilt); returns the kernel launches the tool counted in its run."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "readbouncer_tpu_torch.tools.profile_realistic", "--cache", str(filter_dir)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True, text=True, timeout=600,
+    )
+    for line in proc.stdout.splitlines():
+        if "first call" not in line:
+            say(f"  | {line}")
+    check(proc.returncode == 0, f"profile_realistic exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check("built g" not in proc.stdout, "profile_realistic rebuilt a filter")
+    m = re.search(r"^launches: (\{.*\})$", proc.stdout, re.M)
+    check(m is not None, "profile_realistic printed no launches line")
+    launches = json.loads(m.group(1))
+    check(launches["K1"] > 0 and launches["K4"] > 0, f"profile_realistic launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------- live loop
@@ -662,6 +855,8 @@ def _counters() -> dict:
         "K1": ibf_count.accumulate_planes.launches,
         "K2": ibf_count.planes_dual_max.launches,
         "K3": gru_ops.gru_layer.launches,
+        "K4": ibf_count.accumulate_counts.launches,
+        "K5": gather.xor_gather.launches,
     }
 
 
@@ -669,6 +864,8 @@ def _reset_counters() -> None:
     ibf_count.accumulate_planes.launches = 0
     ibf_count.planes_dual_max.launches = 0
     gru_ops.gru_layer.launches = 0
+    ibf_count.accumulate_counts.launches = 0
+    gather.xor_gather.launches = 0
 
 
 def profile_live_tick(basecaller, classifier, workload) -> None:
@@ -833,6 +1030,63 @@ def phase_cli_live(filter_dir: Path, dev, workload) -> None:
     )
 
 
+def phase_gather(dev) -> dict:
+    """K5 at the probe's defaults against its plain version, timed beside
+    PyTorch's index_select baselines; then the probe tool itself."""
+    out = {}
+    for exp in ("cuda_block", "cuda_row"):
+        tab, idx = dma_gather_probe.experiment_inputs(exp, GATHER_M, dma_gather_probe.ROWS, dev)
+        got = gather.xor_gather(tab, idx, GATHER_CH, GATHER_NBUF)
+        want = gather.xor_gather_plain(tab, idx)
+        torch.cuda.synchronize()
+        err = int((got != want).sum())
+        check(torch.equal(got, want), f"K5 {exp} differs from its plain version in {err} words")
+        S = tab.shape[1] * tab.shape[2]
+        hits = torch.bincount(idx.long(), minlength=tab.shape[0])
+        distinct, odd = int((hits > 0).sum()), int((hits & 1).sum())
+        # XOR cancels pairs: the least work reads each slice hit an odd
+        # number of times once and XORs it in, reads the indices once and
+        # writes the output once
+        nbytes = odd * S * 4 + idx.numel() * 4 + S * 4
+        ops = odd * S
+        bound_ms, bound_by = _bound(nbytes, ops)
+        out[exp] = d = dict(
+            shape=f"tab int32 {list(tab.shape)}, idx int32 [{idx.numel()}], CH={GATHER_CH}, "
+                  f"NBUF={GATHER_NBUF} -> int32 {list(got.shape)}",
+            max_abs_err=err, distinct=distinct, odd=odd,
+            # the checked call above passed these indices
+            ms=cuda_ms(lambda: gather.xor_gather(tab, idx, GATHER_CH, GATHER_NBUF, check=False), 20),
+            plain_ms=cuda_ms(lambda: gather.xor_gather_plain(tab, idx), 2, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        say(
+            f"gather: K5 {exp} {d['shape']}: kernel {d['ms']:.4f} ms, plain {d['plain_ms']:.3f} ms, bound "
+            f"{bound_ms * 1e3:.1f} us ({bound_by}: {odd} of {distinct} distinct slices hit an odd number "
+            f"of times, {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e6:.0f} M int ops); bit-equal"
+        )
+        del tab, idx, got, want
+    tab, idx = dma_gather_probe.experiment_inputs("torch_block", GATHER_M, dma_gather_probe.ROWS, dev)
+    out["torch_block_ms"] = cuda_ms(lambda: tab.index_select(0, idx), 20)
+    block_shape = list(tab.shape)
+    tab, idx = dma_gather_probe.experiment_inputs("torch_g3", GATHER_M, dma_gather_probe.ROWS, dev)
+    out["torch_g3_ms"] = cuda_ms(
+        lambda: tab.index_select(0, idx[0]) & tab.index_select(0, idx[1]) & tab.index_select(0, idx[2]), 20
+    )
+    say(f"gather: baselines torch_block (index_select of {GATHER_M} from {block_shape}) "
+        f"{out['torch_block_ms']:.4f} ms, torch_g3 (3 index_select + AND from {list(tab.shape)}) "
+        f"{out['torch_g3_ms']:.4f} ms")
+    del tab, idx
+    _reset_counters()
+    for argv in [[exp] for exp in dma_gather_probe.EXPERIMENTS] + [["--check"]]:
+        rc = dma_gather_probe.main(argv)
+        check(rc == 0, f"dma_gather_probe {' '.join(argv)} returned {rc}")
+    out["launches"] = _counters()["K5"]
+    check(out["launches"] > 0, "the gather probe launched no K5")
+    say(f"gather: the probe tool's four experiments and --check returned 0; K5 launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -875,6 +1129,10 @@ def main() -> int:
     say(f"kernels phase: {time.monotonic() - t0:.2f} s")
 
     t0 = time.monotonic()
+    k4 = phase_counts(engine, seqs)
+    say(f"counts phase: {time.monotonic() - t0:.2f} s")
+
+    t0 = time.monotonic()
     classified, best, launches, dt = phase_main(engine, filters, seqs)
     say(f"main phase: {time.monotonic() - t0:.2f} s")
 
@@ -884,9 +1142,21 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as filter_dir:
         t0 = time.monotonic()
-        paths = save_filters(filters, Path(filter_dir))
+        filter_dir = Path(filter_dir)
+        paths = save_filters(filters, filter_dir)
         phase_cli(paths, filters, seqs, classified, best)
+        (filter_dir / "genomes").mkdir()
+        genome_paths = write_genomes(genomes, filter_dir / "genomes")
+        phase_cli(genome_paths, filters, seqs, classified, best, inputs="genome FASTAs")
         say(f"cli phase: {time.monotonic() - t0:.2f} s")
+
+        t0 = time.monotonic()
+        built = phase_cli_build(dev, genome_paths, filters, filter_dir)
+        say(f"cli build/update phase: {time.monotonic() - t0:.2f} s")
+
+        t0 = time.monotonic()
+        profile_launches = phase_tool_profile(filter_dir)
+        say(f"tool profile phase: {time.monotonic() - t0:.2f} s")
 
         t0 = time.monotonic()
         gru = phase_gru(dev, workload)
@@ -899,8 +1169,12 @@ def main() -> int:
             say(f"live phase ({caller}): {time.monotonic() - t0:.2f} s")
 
         t0 = time.monotonic()
-        phase_cli_live(Path(filter_dir), dev, workload)
+        phase_cli_live(filter_dir, dev, workload)
         say(f"cli live phase: {time.monotonic() - t0:.2f} s")
+
+    t0 = time.monotonic()
+    k5 = phase_gather(dev)
+    say(f"gather phase: {time.monotonic() - t0:.2f} s")
 
     paths_launched = {"classify": launches, "live_synth48": live["synth48"]["launches"],
                       "live_oracle": live["oracle"]["launches"]}
@@ -936,6 +1210,25 @@ def main() -> int:
         "logits_max_abs_err": gru["logits_max_abs_err"], "tokens_differ": gru["tokens_differ"],
         "launches_by_path": {path: n["K3"] for path, n in paths_launched.items()},
     })
+    rows.append({
+        "name": "accumulate_counts", "route": "cuda", "source": "readbouncer_tpu_torch/ops/csrc/ibf_count.cu",
+        "replaces": "readbouncer_tpu/ops/ibf_count_pallas.py:62", "launches": profile_launches["K4"],
+        "max_abs_err": k4["max_abs_err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None, "shape": k4["shape"],
+        "zeros_ms": k4["zeros_ms"], "launches_by_path": {"tool_profile_realistic": profile_launches["K4"]},
+    })
+    blk, row = k5["cuda_block"], k5["cuda_row"]
+    rows.append({
+        "name": "xor_gather", "route": "cuda", "source": "readbouncer_tpu_torch/ops/csrc/gather_probe.cu",
+        "replaces": "scripts/dma_gather_probe.py:59", "launches": k5["launches"],
+        "max_abs_err": max(blk["max_abs_err"], row["max_abs_err"]), "ms": blk["ms"], "plain_ms": blk["plain_ms"],
+        "bound_ms": blk["bound_ms"], "bound_by": blk["bound_by"], "library_ms": None, "shape": blk["shape"],
+        "cuda_row": {key: row[key] for key in keys + ("distinct", "odd")}, "distinct": blk["distinct"],
+        "odd": blk["odd"],
+        "baselines": {"torch_block_ms": k5["torch_block_ms"], "torch_g3_ms": k5["torch_g3_ms"]},
+        "launches_by_path": {"tool_dma_gather_probe": k5["launches"]},
+    })
+    say(f"build: {json.dumps(built)}")
     live_line = {c: {k: v for k, v in d.items() if k != "launches"} for c, d in live.items()}
     say(f"live: {json.dumps(live_line)}")
     say(f"total: {time.monotonic() - t_all:.1f} s; main path {len(seqs) / dt:.0f} reads/s; live p50 "

@@ -1,8 +1,9 @@
 """Interleaved Bloom Filter container and on-disk format (.ribf).
 
 A copy of readbouncer_tpu/ibf/storage.py (host-side numpy container and
-the same file format), plus ``ibf_from_numpy``, which carries a JAX
-package filter's fields across into this package's ``IBFData``.
+the same file format, ``empty`` and ``resize_bins`` for the build and
+update paths), plus ``ibf_from_numpy``, which carries a JAX package
+filter's fields across into this package's ``IBFData``.
 
 The filter is a uint32 bit matrix ``bits[rows, words]``:
 
@@ -32,6 +33,7 @@ import numpy as np
 
 from readbouncer_tpu_torch.errors import FilterFileError, FilterSchemeError
 from readbouncer_tpu_torch.ibf.hashing import HASH_SCHEME, SUPPORTED_SCHEMES
+from readbouncer_tpu_torch.ibf.params import optimal_bins
 
 __all__ = ["IBFData", "sniff", "ibf_from_numpy"]
 
@@ -67,6 +69,47 @@ class IBFData:
     @property
     def words(self) -> int:
         return int(self.bits.shape[1])
+
+    @property
+    def total_bits(self) -> int:
+        return self.rows * self.padded_bins
+
+    @classmethod
+    def empty(
+        cls,
+        rows: int,
+        num_bins: int,
+        kmer_size: int,
+        hash_functions: int,
+        fragment_length: int = 0,
+        max_fp: float = 0.01,
+        name: str = "",
+        scheme: str = HASH_SCHEME,
+    ) -> "IBFData":
+        words = optimal_bins(num_bins) // 32
+        return cls(
+            kmer_size=kmer_size,
+            hash_functions=hash_functions,
+            num_bins=num_bins,
+            bits=np.zeros((rows, words), dtype=np.uint32),
+            fragment_length=fragment_length,
+            max_fp=max_fp,
+            name=name,
+            scheme=scheme,
+        )
+
+    def resize_bins(self, new_num_bins: int) -> "IBFData":
+        """Grow the bin axis (64-padded), keeping existing bits.
+
+        Mirrors seqan resizeBins used by the incremental update path
+        (reference: src/IBF/IBFBuild.cpp:274).
+        """
+        new_words = optimal_bins(new_num_bins) // 32
+        if new_words > self.words:
+            pad = np.zeros((self.rows, new_words - self.words), dtype=np.uint32)
+            self.bits = np.concatenate([self.bits, pad], axis=1)
+        self.num_bins = new_num_bins
+        return self
 
     def save(self, path: str | Path) -> None:
         path = Path(path)

@@ -3,21 +3,26 @@
 The torch counterpart of readbouncer_tpu/main.py for the usages this
 port covers, on the same TOML schema (config.py):
 
-* ``classify`` — load the ``.ribf`` filters, classify the read files,
-  write the per-target FASTAs and ``unclassified.fasta`` and print the
-  final results block;
+* ``build`` — build a ``.ribf`` filter from each FASTA input on the
+  card and save it to ``<output>/<stem>.ribf``;
+* ``update`` — append the target FASTAs' sequences to the filter
+  ``[IBF] update_filter`` as new bins and save it to
+  ``<output>/<stem>.ribf``;
+* ``classify`` — load the filters (building the FASTA inputs first),
+  classify the read files, write the per-target FASTAs and
+  ``unclassified.fasta`` and print the final results block;
 * ``target`` — the live adaptive-sampling loop over a replayed signal
   source (``[TPU] replay_file`` or ``replay_signals``): basecall each
   0.4 s chunk (the Oracle caller or the GRU), decide it against the
-  ``.ribf`` filters, send unblock / stop_receiving actions, write
+  filters, send unblock / stop_receiving actions, write
   ``TargetReads.fasta``, ``DepletedReads.fasta`` and the decision CSV;
 * ``test`` — bring the replay source up and report its first window.
 
-``build`` and ``update``, FASTA filter inputs (which the reference builds
-on the fly), the remote basecaller (``caller = "Guppy"``) and the device
-mesh (``mesh_shape``) are not ported yet: they exit with status 2 and
-name the ROADMAP item that ports them.  The device is the CUDA card
-unless ``--device cpu`` is given.
+The remote basecaller (``caller = "Guppy"``), the device mesh
+(``mesh_shape``) and multi-process runs (``[TPU] coordinator``) are not
+ported yet: they exit with status 2 and name the ROADMAP item that
+ports them.  The device is the CUDA card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -30,15 +35,18 @@ from pathlib import Path
 from readbouncer_tpu_torch.config import ConfigReader
 from readbouncer_tpu_torch.utils.logging import get_logger, setup_loggers
 
-__all__ = ["main", "run_program", "load_filters", "make_replay_source", "make_basecaller", "live_config"]
+__all__ = [
+    "main", "run_program", "get_filters", "filter_output_path", "make_replay_source",
+    "make_basecaller", "live_config",
+]
 
 NOT_PORTED = {
-    "build": "M13 (build usage, FASTA filter inputs) in ROADMAP.md",
-    "update": "M12 (update usage) in ROADMAP.md",
     "remote": "M8 (models/remote.py, the remote basecaller) in ROADMAP.md",
-    "mesh": "M9 (parallel/, the device mesh and multi-process runs) in ROADMAP.md",
+    "mesh": (
+        "M9 (parallel/, the device mesh and multi-process runs: [TPU] coordinator, "
+        "num_processes, process_id) in ROADMAP.md"
+    ),
 }
-USAGES_NOT_PORTED = ("build", "update")
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -58,18 +66,43 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def load_filters(files: list[Path]) -> list | None:
-    """Load each .ribf input; None when one is not a filter file (a
-    FASTA, which the reference's getIBF builds: not ported yet)."""
+def filter_output_path(output_dir: Path, source: Path) -> Path:
+    """<output>/<fasta stem>.ribf (reference .ibf naming: ibfbuild.hpp:38-44)."""
+    return output_dir / (source.stem + ".ribf")
+
+
+def get_filters(config: ConfigReader, files: list[Path], device, verbose: bool = False) -> list:
+    """Load-or-build each input (reference: getIBF, src/main/ibfbuild.hpp:69-180):
+    filter files load directly; FASTA inputs are built on ``device`` and
+    saved first."""
+    from readbouncer_tpu_torch.ibf.build import build_ibf
+    from readbouncer_tpu_torch.ibf.params import IBFParams
     from readbouncer_tpu_torch.ibf.storage import IBFData, sniff
 
     log = get_logger("IbfLog")
     out = []
     for f in map(Path, files):
-        if not sniff(f):
-            return None
-        log.info("loading filter file %s", f)
-        out.append(IBFData.load(f, name=f.stem))
+        if sniff(f):
+            log.info("loading filter file %s", f)
+            out.append(IBFData.load(f, name=f.stem))
+            continue
+        params = IBFParams(
+            kmer_size=config.ibf.kmer_size,
+            fragment_length=config.ibf.fragment_size,
+            hash_functions=config.tpu.hash_functions,
+            max_fp=config.tpu.max_fp,
+        )
+        log.info("building filter from %s (k=%d, fragment=%d)", f, params.kmer_size, params.fragment_length)
+        ibf, stats = build_ibf([f], params, name=f.stem, device=device)
+        dest = filter_output_path(config.output_dir, f)
+        ibf.save(dest)
+        log.info(
+            "built %s: %d bins, %d bits, %.2fs",
+            dest, stats.total_bins_declared, stats.filter_size_bits, stats.build_seconds,
+        )
+        if verbose:
+            print(f"built {dest}: {stats.total_bins_declared} bins, {stats.filter_size_bits} bits")
+        out.append(ibf)
     return out
 
 
@@ -82,14 +115,48 @@ def _not_ported(what: str, item: str) -> int:
     return 2
 
 
+def run_build(config: ConfigReader, device, verbose: bool) -> int:
+    """reference: main.cpp:286-345 (build usage builds every input file)."""
+    get_filters(config, config.ibf.target_files + config.ibf.deplete_files, device, verbose)
+    return 0
+
+
+def run_update(config: ConfigReader, device, verbose: bool) -> int:
+    """Append new references to an existing filter (usage="update"),
+    written to <output>/<stem>.ribf (reference package: main.py:90-120;
+    IBF::update_filter, src/IBF/IBFBuild.cpp:223-321)."""
+    from readbouncer_tpu_torch.ibf.build import update_ibf
+    from readbouncer_tpu_torch.ibf.params import IBFParams
+    from readbouncer_tpu_torch.ibf.storage import IBFData
+
+    log = get_logger("IbfLog")
+    src = config.ibf.update_filter
+    ibf = IBFData.load(src, name=Path(src).stem)
+    params = IBFParams(
+        kmer_size=ibf.kmer_size,
+        fragment_length=ibf.fragment_length or config.ibf.fragment_size,
+        hash_functions=ibf.hash_functions,
+        max_fp=ibf.max_fp,
+        hash_scheme=ibf.scheme,
+    )
+    ibf, stats = update_ibf(ibf, config.ibf.target_files, params, device=device)
+    dest = filter_output_path(config.output_dir, Path(src))
+    ibf.save(dest)
+    log.info(
+        "updated %s -> %s: +%d bins (%d total), %d bits",
+        src, dest, stats.new_bins, ibf.num_bins, stats.filter_size_bits,
+    )
+    if verbose:
+        print(f"updated {dest}: +{stats.new_bins} bins ({ibf.num_bins} total)")
+    return 0
+
+
 def run_classify(config: ConfigReader, device, verbose: bool) -> int:
     """reference: main.cpp:346-369 -> classify_reads."""
     from readbouncer_tpu_torch.classify.engine import classify_read_files
 
-    targets = load_filters(config.ibf.target_files)
-    depletes = load_filters(config.ibf.deplete_files)
-    if targets is None or depletes is None:
-        return _not_ported("building filters from FASTA inputs", NOT_PORTED["build"])
+    targets = get_filters(config, config.ibf.target_files, device, verbose)
+    depletes = get_filters(config, config.ibf.deplete_files, device, verbose)
     classify_read_files(
         read_files=config.ibf.read_files,
         target_filters=targets,
@@ -187,10 +254,8 @@ def run_target(config: ConfigReader, device, verbose: bool) -> int:
     if config.basecaller.caller.lower() in ("guppy", "remote"):
         return _not_ported(f"caller '{config.basecaller.caller}'", NOT_PORTED["remote"])
     log = get_logger("RUClientLog")
-    targets = load_filters(config.ibf.target_files)
-    depletes = load_filters(config.ibf.deplete_files)
-    if targets is None or depletes is None:
-        return _not_ported("building filters from FASTA inputs", NOT_PORTED["build"])
+    targets = get_filters(config, config.ibf.target_files, device, verbose)
+    depletes = get_filters(config, config.ibf.deplete_files, device, verbose)
     source = make_replay_source(config)
     # bootstrap as the reference's adaptive_sampling does (connect ->
     # wait for acquisition -> set chunk cadence; adaptive_sampling.hpp:590-634)
@@ -227,9 +292,14 @@ def run_test(config: ConfigReader, device, verbose: bool) -> int:
 
 
 def run_program(config: ConfigReader, device=None, verbose: bool = False) -> int:
-    if config.usage in USAGES_NOT_PORTED:
-        return _not_ported(f"usage '{config.usage}'", NOT_PORTED[config.usage])
-    dispatch = {"classify": run_classify, "target": run_target, "test": run_test}
+    """reference: run_program, src/main/main.cpp:274-404."""
+    dispatch = {
+        "build": run_build,
+        "classify": run_classify,
+        "update": run_update,
+        "target": run_target,
+        "test": run_test,
+    }
     return dispatch[config.usage](config, device, verbose)
 
 
@@ -249,6 +319,11 @@ def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
     t0 = time.monotonic()
     config = ConfigReader(args.config).parse()
+    if config.tpu.coordinator:
+        # the reference joins a multi-process run here and shards its
+        # inputs and outputs; without that every process would do all
+        # the work and write the same files
+        return _not_ported("a multi-process run ([TPU] coordinator)", NOT_PORTED["mesh"])
     setup_loggers(config.log_dir)
     config.create_log()
     log = get_logger("ReadBouncerLog")

@@ -1,4 +1,4 @@
-// Kernels K1 and K2 of the IBF query, for Hopper (sm_90a).
+// Kernels K1, K2 and K4 of the IBF query, for Hopper (sm_90a).
 //
 // Plain C interface (extern "C", no PyTorch headers): built by nvcc into a
 // shared library on first use and bound with ctypes
@@ -40,6 +40,28 @@
 //     per strand, ~118 M ops), so it runs well above that bound; a later
 //     version compares the bit-sliced counts with the thresholds 32 bins
 //     at a time instead of expanding every bin.
+//
+// K4  rb_accumulate_counts — replaces the Pallas kernel
+//     readbouncer_tpu/ops/ibf_count_pallas.py::_count_kernel (:62),
+//     reached through accumulate_counts_pallas (:326): the v1 per-bin
+//     count accumulation.  a_t [W, n_pad, R2] membership words (read-strand
+//     q on the fastest axis, padded windows zero) -> counts [W, 32, R2]
+//     int32: counts[w, p, q] is the number of windows i whose word
+//     a_t[w, i, q] has bit p set (bin w*32+p of read-strand q).  One thread
+//     per (w, q) column, q fastest so a warp's loads of one window row are
+//     coalesced; 32 int32 counters in registers; a loop over the windows;
+//     32 coalesced stores.  The TPU kernel's (wb, wcb, r2b) blocks carried
+//     the sum in VMEM across a sequential window grid axis; here the
+//     window loop inside the thread takes that place.
+//     Bound: at the profile_realistic shape (W=72, n_pad=256, R2=4096) it
+//     reads 302 MB and writes 37.7 MB, a 0.101 ms floor at 3.35 TB/s; the
+//     least integer work (a bit-sliced carry-save add per word, as K1
+//     does, then one expansion) is ~0.3 G ops, far below the int32 rate,
+//     so bytes bound it.  This kernel's source does a shift, a mask and
+//     an add per bit (~96 ops per word, ~7 G at this shape) and it runs
+//     several times its bound; what limits it is not measured (the
+//     instructions the compiler emits were not counted).  A later version
+//     counts bit-sliced, as K1 does, and expands once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +105,28 @@ cudaError_t launch_accumulate(const uint32_t* a, uint32_t* out, int R2, int n,
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   accumulate_planes_kernel<P><<<blocks, threads, 0, stream>>>(a, out, R2, n, W);
   return cudaGetLastError();
+}
+
+__global__ void accumulate_counts_kernel(const uint32_t* __restrict__ a,
+                                         int* __restrict__ out, int W,
+                                         int n_pad, int R2) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)W * R2) return;
+  const int w = (int)(idx / R2);
+  const int q = (int)(idx - (long long)w * R2);
+  const uint32_t* src = a + (size_t)w * n_pad * R2 + q;
+  int c[32];
+#pragma unroll
+  for (int p = 0; p < 32; ++p) c[p] = 0;
+#pragma unroll 4
+  for (int i = 0; i < n_pad; ++i) {
+    const uint32_t x = __ldg(src + (size_t)i * R2);
+#pragma unroll
+    for (int p = 0; p < 32; ++p) c[p] += (int)((x >> p) & 1u);
+  }
+  int* dst = out + (size_t)w * 32 * R2 + q;
+#pragma unroll
+  for (int p = 0; p < 32; ++p) dst[(size_t)p * R2] = c[p];
 }
 
 struct SegTable {
@@ -178,6 +222,16 @@ cudaError_t rb_planes_dual_max(const void* planes, const void* thr_b,
       static_cast<const uint32_t*>(planes), static_cast<const int*>(thr_b),
       static_cast<const int*>(thr_r), static_cast<const uint32_t*>(mask_words),
       seg, F, static_cast<int*>(mb), static_cast<int*>(mr), R, P, W);
+  return cudaGetLastError();
+}
+
+cudaError_t rb_accumulate_counts(const void* a_t, void* out, int W, int n_pad,
+                                 int R2, void* stream) {
+  const int threads = 256;
+  const long long total = (long long)W * R2;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  accumulate_counts_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a_t), static_cast<int*>(out), W, n_pad, R2);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 of the IBF query: wrappers, plain versions, helpers.
+"""Kernels K1, K2 and K4 of the IBF query: wrappers, plain versions, helpers.
 
 Counterpart of readbouncer_tpu/ops/ibf_count_pallas.py.  Each wrapper
 validates its operands, then
@@ -9,12 +9,18 @@ validates its operands, then
 
 There is no fallback from the kernel to the plain version.  Each wrapper
 carries a launch counter (``accumulate_planes.launches``,
-``planes_dual_max.launches``) that goes up by one per kernel launch and
-nowhere else.
+``planes_dual_max.launches``, ``accumulate_counts.launches``) that goes
+up by one per kernel launch and nowhere else.
 
 Bit planes: plane j of row r2 holds bit j of the per-bin count, 32 bins
 per word — bit p of word w is bin ``w*32 + p``.  Words travel as int32
 tensors read as uint32 in CUDA.
+
+K4 is the v1 accumulation, which the main path no longer takes (K1 and
+K2 replaced it) and ``tools/profile_realistic.py`` times: membership
+words laid out [W, n_pad, 2R] (read-strands on the fastest axis) to
+int32 counts [W, 32, 2R], where bin b of read r, strand s is at
+``[b // 32, b % 32, 2*r + s]``.
 """
 
 from __future__ import annotations
@@ -33,10 +39,19 @@ __all__ = [
     "planes_dual_max_plain",
     "expand_planes",
     "pack_bin_mask",
+    "COUNTS_BLOCKS",
+    "accumulate_counts",
+    "accumulate_counts_plain",
+    "counts_v1_n_pad",
+    "counts_v1_input",
+    "counts_from_v1",
 ]
 
 MAX_PLANES = 16  # K1 keeps the planes in registers (one template per P)
 MAX_SEGMENTS = 32  # K2 takes the segment table as a by-value kernel argument
+# K4's padding contract: the Pallas kernel's (word, window, read-strand)
+# blocks, each cut to the axis when the axis is smaller
+COUNTS_BLOCKS = (8, 128, 512)
 
 
 def _check_int32(name: str, t: torch.Tensor, ndim: int) -> None:
@@ -52,11 +67,11 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _raise_on(err: int, what: str) -> None:
+def _raise_on(err: int, what: str, library: str = "ibf_count") -> None:
     if err != 0:
         from readbouncer_tpu_torch.ops._build import error_string
 
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({error_string(err, 'ibf_count')})")
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({error_string(err, library)})")
 
 
 # --------------------------------------------------------------------- K1
@@ -229,3 +244,65 @@ def pack_bin_mask(bin_mask) -> np.ndarray:
         raise ValueError(f"bin mask length {B} is not a multiple of 32")
     bits = m.reshape(B // 32, 32).astype(np.uint32)
     return (bits << np.arange(32, dtype=np.uint32)[None, :]).sum(axis=1, dtype=np.uint32)
+
+
+# --------------------------------------------------------------------- K4
+
+
+def accumulate_counts(a_t: torch.Tensor) -> torch.Tensor:
+    """a_t int32 [W, n_pad, R2] membership words -> int32 [W, 32, R2] counts.
+
+    ``counts[w, p, q]`` is the number of windows whose word ``a_t[w, :, q]``
+    has bit p set.  Keeps the padding contract of the Pallas
+    ``_count_kernel`` it replaces (accumulate_counts_pallas): each axis a
+    multiple of its block in ``COUNTS_BLOCKS`` (or smaller than it), padded
+    windows and lanes zero; ``ValueError`` otherwise.
+    """
+    _check_int32("a_t", a_t, 3)
+    W, n_pad, R2 = a_t.shape
+    blocks = [min(b, d) for b, d in zip(COUNTS_BLOCKS, a_t.shape)]
+    if any(b == 0 or d % b for b, d in zip(blocks, a_t.shape)):
+        raise ValueError(f"bad padding: {tuple(a_t.shape)} vs blocks {tuple(blocks)}")
+    if a_t.device.type == "cpu":
+        return accumulate_counts_plain(a_t)
+    out = torch.empty((W, 32, R2), dtype=torch.int32, device=a_t.device)
+    from readbouncer_tpu_torch.ops._build import load_library
+
+    lib = load_library("ibf_count").lib
+    with torch.cuda.device(a_t.device):
+        err = lib.rb_accumulate_counts(
+            ctypes.c_void_p(a_t.data_ptr()), ctypes.c_void_p(out.data_ptr()), W, n_pad, R2, _stream(a_t),
+        )
+    _raise_on(err, "accumulate_counts")
+    accumulate_counts.launches += 1
+    return out
+
+
+accumulate_counts.launches = 0
+
+
+def accumulate_counts_plain(a_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: one shift-mask-sum over the windows per bit."""
+    return torch.stack([((a_t >> p) & 1).sum(dim=1, dtype=torch.int32) for p in range(32)], dim=1)
+
+
+def counts_v1_n_pad(n: int) -> int:
+    """Windows padded for K4 as the JAX package pads them: to a multiple
+    of 128 above 128 windows, else to a power of two."""
+    return -(-n // 128) * 128 if n > 128 else (1 << max(n - 1, 1).bit_length())
+
+
+def counts_v1_input(anded: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """anded int32 [R, 2, n, W] -> K4's a_t int32 [W, n_pad, 2R], windows
+    past n zero."""
+    R, _, n, W = anded.shape
+    a_t = torch.zeros((W, n_pad, 2 * R), dtype=torch.int32, device=anded.device)
+    a_t[:, :n, :] = anded.reshape(2 * R, n, W).permute(2, 1, 0)
+    return a_t
+
+
+def counts_from_v1(out: torch.Tensor) -> torch.Tensor:
+    """K4's int32 [W, 32, 2R] -> per-bin counts int32 [R, 2, W*32] (the
+    K1 route's ``counts`` layout)."""
+    W, _, R2 = out.shape
+    return out.reshape(W * 32, R2).t().reshape(R2 // 2, 2, W * 32)

@@ -1,9 +1,11 @@
 """``python -m readbouncer_tpu_torch`` against ``python -m readbouncer_tpu``
 on one small config: the same TOML file over the same .ribf filters, the
-same output FASTAs and counters.  The usages not ported yet, and FASTA
-filter inputs to ``classify``, exit 2 naming their ROADMAP item.  The
-live usages (``target``, ``test``) are held against the JAX CLI in
-tests/test_torch_cli_live.py."""
+same output FASTAs and counters.  A multi-process run (``[TPU]
+coordinator`` set), not ported yet, exits 2 naming ROADMAP M9 in every
+usage, before any work.  The live usages (``target``, ``test``) are held
+against the JAX CLI in tests/test_torch_cli_live.py, the filter-building
+ones (``build``, ``update``, FASTA filter inputs) in
+tests/test_torch_build_cli.py."""
 
 import logging
 import os
@@ -112,20 +114,34 @@ def test_cli_classify_matches_jax(world, capsys):
     assert (td / "log_port" / "configLog.toml").exists()
 
 
+COORDINATOR = '\n[TPU]\ncoordinator = "localhost:8476"\nnum_processes = 2\nprocess_id = 0\n'
+
+
+def _coordinated(td, name, **kw):
+    """A config of this file with the multi-process keys set."""
+    cfg = _config(td, name, **kw)
+    cfg.write_text(cfg.read_text().replace("\n[TPU]\nbatch_size = 16\n", COORDINATOR))
+    return cfg
+
+
 def test_cli_fasta_filter_inputs_exit_nonzero(world, capsys):
+    """Under a coordinator FASTA inputs are refused before any filter is built."""
     td = world
-    cfg = _config(td, "fasta", targets="target.fasta", depletes="deplete.fasta")
+    cfg = _coordinated(td, "fasta", targets="target.fasta", depletes="deplete.fasta")
     assert port_main(["--config", str(cfg), "--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and "M13" in err and "ROADMAP.md" in err
+    assert "not ported" in err and "M9" in err and "coordinator" in err and "ROADMAP.md" in err
+    assert not (td / "out_fasta" / "target.ribf").exists()
     assert not (td / "out_fasta" / "target.fasta").exists()
 
 
-@pytest.mark.parametrize("usage,item", [("build", "M13"), ("update", "M12")])
-def test_cli_unported_usages_exit_nonzero(world, capsys, usage, item):
+@pytest.mark.parametrize("usage", ["build", "update", "classify", "target", "test"])
+def test_cli_unported_usages_exit_nonzero(world, capsys, usage):
+    """Each usage of a multi-process run exits 2 naming M9, writing nothing."""
     td = world
     extra = f'update_filter = "{td}/target.ribf"\n' if usage == "update" else ""
-    rc = port_main(["--config", str(_config(td, f"u_{usage}", usage=usage, extra=extra)), "--device", "cpu"])
-    assert rc == 2
+    cfg = _coordinated(td, f"u_{usage}", usage=usage, extra=extra)
+    assert port_main(["--config", str(cfg), "--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and item in err and "ROADMAP.md" in err
+    assert "not ported" in err and "M9" in err and "coordinator" in err and "ROADMAP.md" in err
+    assert list((td / f"out_u_{usage}").iterdir()) == []
