@@ -2,6 +2,7 @@
 """Smoke run of readbouncer_tpu_torch on one CUDA card (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2-only
 
 Drives the port's two paths at full width and holds every kernel against
 its plain version:
@@ -33,7 +34,11 @@ Phases:
 4. kernels — K1 (accumulate_planes) and K2 (planes_dual_max) on real
             inputs of that stack at the phase-A and phase-B shapes of
             classify and the short bucket of the live loop, bit-equal to
-            their plain versions, timed with CUDA events;
+            their plain versions, timed with CUDA events (K2, shorter
+            than the host's cost of a call through its wrapper: 20 calls
+            in a CUDA graph, the profiler's device time per launch, and
+            the wrapper's time beside them); K2's launch layout (one warp
+            per read and segment) printed;
    counts — K4 (accumulate_counts) on the v1 input of 2,048 bench-read
             chunks of 250 bp ([72, 256, 4096], 302 MB): bit-equal to its
             plain version, and reshaped equal to the K1 route's counts of
@@ -43,7 +48,8 @@ Phases:
             counters > 0, 256 reads' decisions equal to the numpy oracle,
             then 3 more timed runs for the spread;
    profile — host encode time and one host batch under torch.profiler
-            (device busy share, top kernels); informational;
+            (device busy share, top kernels and the port's own);
+            informational;
 6. cli    — `python -m readbouncer_tpu_torch --config` on 2,048 of the
             reads: output FASTAs and counters equal to the in-process run,
             over the .ribf filters and again over the genome FASTAs
@@ -61,8 +67,11 @@ Phases:
             real gate inputs (chunk signals framed and projected through
             synth48's layer 0) at B=256 and 512, T=320, H=48, both scan
             directions, and at H=96 with seeded random weights; the full
-            forward's logits and argmax tokens against the plain forward;
-            timed beside PyTorch's cuDNN nn.GRU as a yardstick;
+            forward's logits and argmax tokens against the plain forward,
+            and both forwards against the plain forward in float64; timed
+            beside PyTorch's cuDNN nn.GRU as a yardstick; K3's
+            launch (rows per block, slices, threads, registers and local
+            memory per thread, which must be 0: no spill) printed;
 8. live   — the live loop on bench_live's workload with the synth48 GRU
             caller, then with the Oracle caller: 1,024 reads unblocked
             (every genome-3 read) and 1,024 stop_receiving (every genome-0
@@ -82,11 +91,17 @@ Phases:
 Prints one line per phase with its seconds, a JSON line with the
 kernels' numbers, the card line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
+
+``--k2-only`` runs phases 1-4 and prints K2's times at the three shapes
+as one JSON line, then the card line.  A copy of this file placed at the
+root of another checkout of the repo times that checkout's K2 on the same
+inputs the same way: how two versions of K2 are compared in one run.
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import os
@@ -299,6 +314,56 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Time of one call of fn with the host out of the way: ``calls`` calls
+    captured in one CUDA graph, replayed between CUDA events.  For a
+    kernel shorter than the host's cost of a call through its wrapper,
+    where cuda_ms would time the host."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def launch_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Device time per launch of the kernels whose name holds ``kernel``,
+    over ``calls`` calls of fn traced by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(ms, n) for ms, n, key in device_rows(prof) if kernel in key]
+    check(bool(hits), f"no {kernel} launch in the profile")
+    return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
+
+
+def time_k2(planes, args) -> dict:
+    """K2's time per call three ways: ``ms`` from a CUDA graph (graph_ms),
+    ``launch_ms`` from the profiler's device time per launch, and
+    ``call_ms`` through its wrapper between CUDA events, host included."""
+    fn = lambda: ibf_count.planes_dual_max(planes, *args)  # noqa: E731
+    return dict(ms=graph_ms(fn), launch_ms=launch_ms(fn, "planes_dual_max_kernel"), call_ms=cuda_ms(fn, 50))
+
+
 def _anded_inputs(engine: ClassifyEngine, frags: np.ndarray, lens: np.ndarray, tab_b, tab_r):
     """anded words [2R, n, W] of the merged stack and the per-read
     thresholds looked up in the given tables."""
@@ -377,6 +442,9 @@ def phase_kernels(engine: ClassifyEngine, seqs: list[str], live_seqs: list[str])
         err2 = int(max((mb - pb).abs().max(), (mr - pr).abs().max()))
         check(torch.equal(mb, pb) and torch.equal(mr, pr), f"K2 differs from its plain version at phase {label}")
         F = len(stack.seg_spec)
+        seg_words = sorted({padded // 32 for _, padded in stack.seg_spec})
+        say(f"  K2 shape {label}: one warp per (read, segment): {R * F} warps, {P} planes per strand "
+            f"and segments of {seg_words} words, 32 words per pass")
         # the least work each function needs, whatever the kernel does:
         # K1 reads every membership word once and writes the planes, and
         # adds each word into bit-sliced counters (a half adder, and +
@@ -398,15 +466,19 @@ def phase_kernels(engine: ClassifyEngine, seqs: list[str], live_seqs: list[str])
         out[("K2", label)] = dict(
             shape=f"planes int32 [{R2}, {P}, {W}], F={F} -> mb, mr int32 [{R}, {F}]",
             max_abs_err=err2,
-            ms=cuda_ms(lambda: ibf_count.planes_dual_max(planes, *args), 50),
+            **time_k2(planes, args),
             plain_ms=cuda_ms(lambda: ibf_count.planes_dual_max_plain(planes, *args), 5),
             bytes=k2_bytes, ops=k2_ops,
         )
         for kname in ("K1", "K2"):
             d = out[(kname, label)]
             d["bound_ms"], d["bound_by"] = _bound(d["bytes"], d["ops"])
+            call = (
+                f" (CUDA graph; {d['launch_ms']:.4f} ms per launch in the profiler, {d['call_ms']:.4f} ms "
+                f"per call through the wrapper)" if "call_ms" in d else ""
+            )
             say(
-                f"  {kname} shape {label}: {d['shape']}: kernel {d['ms']:.4f} ms, plain "
+                f"  {kname} shape {label}: {d['shape']}: kernel {d['ms']:.4f} ms{call}, plain "
                 f"{d['plain_ms']:.3f} ms, bound {d['bound_ms'] * 1e3:.1f} us ({d['bound_by']}: "
                 f"{d['bytes'] / 1e6:.1f} MB, {d['ops'] / 1e6:.0f} M int ops), bit-equal"
             )
@@ -541,6 +613,16 @@ def device_rows(prof) -> list[tuple[float, int, str]]:
     ]
 
 
+PORT_KERNELS = ("accumulate_planes_kernel", "planes_dual_max_kernel", "gru_layer_kernel")
+
+
+def _listed(rows, top: int):
+    """The ``top`` kernels by device time, then any of the port's own
+    kernels (PORT_KERNELS) below them."""
+    ranked = sorted(rows, reverse=True)
+    return ranked[:top] + [r for r in ranked[top:] if any(k in r[2] for k in PORT_KERNELS)]
+
+
 def phase_profile(engine: ClassifyEngine, seqs: list[str]) -> None:
     """Where the main path's time goes: host encode of the whole read set,
     and one host batch under torch.profiler (device busy share and the
@@ -563,7 +645,7 @@ def phase_profile(engine: ClassifyEngine, seqs: list[str]) -> None:
         f"profile: one host batch of {len(batch)} reads under the profiler: wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(rows)} kernel kinds"
     )
-    for ms, count, key in sorted(rows, reverse=True)[:10]:
+    for ms, count, key in _listed(rows, 10):
         say(f"  {ms:8.2f} ms {count:5d}x {key[:100]}")
 
 
@@ -765,6 +847,17 @@ def _nn_gru(layer: dict, H: int, dev) -> torch.nn.GRU:
     return gru
 
 
+def gru_config(B: int, H: int) -> dict:
+    """The launch K3 makes for (B, H), as ops/csrc/gru.cu::rb_gru_config
+    reports it (registers and local memory from cudaFuncGetAttributes)."""
+    keys = ("rows", "slices", "threads", "blocks", "chunks", "registers", "local_bytes",
+            "shared_bytes", "blocks_per_sm")
+    out = (ctypes.c_int * len(keys))()
+    err = load_library("gru").lib.rb_gru_config(B, H, ctypes.cast(out, ctypes.c_void_p))
+    check(err == 0, f"rb_gru_config({B}, {H}) failed: CUDA error {err}")
+    return dict(zip(keys, out))
+
+
 def _gru_case(name: str, layer: dict, x: torch.Tensor) -> dict:
     """K3 against its plain version (both directions) on x's gate inputs,
     timed beside the plain loop and cuDNN's nn.GRU on the same x."""
@@ -784,14 +877,16 @@ def _gru_case(name: str, layer: dict, x: torch.Tensor) -> dict:
         plain_ms = cuda_ms(lambda: gru_ops.gru_layer_plain(layer, xg), 2, warmup=1)
         lib_ms = cuda_ms(lambda: gru(x), 20)
     bound_ms, bound_by, nbytes, flops = _gru_bound(B, T, H)
-    rows = load_library("gru").lib.rb_gru_rows(B, H)
-    smem = (3 * H * H + 2 * rows * H) * 4
-    say(f"  K3 {name}: {rows} batch rows per block, {-(-B // rows)} blocks of {rows * H} threads, "
-        f"{smem / 1024:.1f} KiB dynamic shared memory per block")
+    cfg = gru_config(B, H)
+    check(cfg["local_bytes"] == 0, f"K3 {name}: {cfg['local_bytes']} B of local memory per thread (a spill)")
+    say(f"  K3 {name}: {cfg['rows']} batch rows per block, {cfg['slices']} slices per unit, "
+        f"{cfg['blocks']} blocks of {cfg['threads']} threads ({cfg['blocks_per_sm']} fit an SM), "
+        f"{cfg['chunks']} float4 chunks per slice; {cfg['registers']} registers and "
+        f"{cfg['local_bytes']} B local memory per thread, {cfg['shared_bytes']} B shared memory per block")
     d = dict(
         shape=f"xg f32 [{B}, {T}, {3 * H}] -> ys f32 [{B}, {T}, {H}]",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=lib_ms, library_max_abs_err=lib_err,
+        library_ms=lib_ms, library_max_abs_err=lib_err, config=cfg,
     )
     say(
         f"  K3 {name}: {d['shape']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, nn.GRU (cuDNN, "
@@ -800,6 +895,17 @@ def _gru_case(name: str, layer: dict, x: torch.Tensor) -> dict:
         f"{lib_err:.2e} (nn.GRU)"
     )
     return d
+
+
+def forward_f64(params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """The plain forward (models/gru.py::gru_logits, kernel=False) in
+    float64: the witness both float32 forwards are held against."""
+    f64 = {k: v.double() for k, v in params.items() if k != "layers"}
+    x = frames.double() @ f64["w_in"] + f64["b_in"]
+    for li, layer in enumerate(params["layers"]):
+        lay = {k: v.double() for k, v in layer.items()}
+        x = gru_ops.gru_layer_plain(lay, x @ lay["w_zrn"] + lay["b_zrn"], reverse=li % 2 == 1)
+    return x @ f64["w_out"] + f64["b_out"]
 
 
 def phase_gru(dev, workload) -> dict:
@@ -835,18 +941,23 @@ def phase_gru(dev, workload) -> dict:
         diff = (tk != tp).nonzero()
         top2 = plain.topk(2, dim=-1).values
         gaps = (top2[..., 0] - top2[..., 1])[tk != tp]
-    check(lerr <= 1e-4, f"forward: max abs error {lerr:.3g} on logits > 1e-4")
-    check(bool((gaps < 1e-4).all()), f"forward: {len(diff)} tokens differ, top-2 gaps {gaps.tolist()[:8]}")
+        witness = forward_f64(p, frames)
+        kerr64 = float((kern.double() - witness).abs().max())
+        perr64 = float((plain.double() - witness).abs().max())
     say(
         f"  forward [512, 320, 66] -> logits [512, 320, 5]: max abs err {lerr:.2e} against the plain "
-        f"forward; {len(diff)} argmax tokens differ"
+        f"forward; {len(diff)} argmax tokens differ; against the float64 forward: kernel {kerr64:.2e}, "
+        f"plain {perr64:.2e}"
     )
+    check(lerr <= 1e-4, f"forward: max abs error {lerr:.3g} on logits > 1e-4")
+    check(bool((gaps < 1e-4).all()), f"forward: {len(diff)} tokens differ, top-2 gaps {gaps.tolist()[:8]}")
     before = gru_ops.gru_layer.launches
     caller.basecall(chunks)
     per_tick = gru_ops.gru_layer.launches - before
     check(per_tick == 8, f"K3 launches per 512-chunk tick {per_tick}, expected 2 halves x 4 layers")
     say(f"  K3 launches per full 512-chunk tick: {per_tick} (2 halves x 4 layers)")
-    out.update(logits_max_abs_err=lerr, tokens_differ=len(diff), launches_per_tick=per_tick)
+    out.update(logits_max_abs_err=lerr, tokens_differ=len(diff), launches_per_tick=per_tick,
+               logits_f64_err={"kernel": kerr64, "plain": perr64})
     return out
 
 
@@ -892,7 +1003,7 @@ def profile_live_tick(basecaller, classifier, workload) -> None:
         f"{(t1 - t0) * 1e3:.1f}, decide {(t2 - t1) * 1e3:.1f}), device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%)"
     )
-    for ms, count, key in sorted(rows, reverse=True)[:8]:
+    for ms, count, key in _listed(rows, 8):
         say(f"    {ms:8.3f} ms {count:5d}x {key[:100]}")
 
 
@@ -1087,7 +1198,10 @@ def phase_gather(dev) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--k2-only"]):
+        print("usage: python3 chip_smoke.py [--k2-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -1127,6 +1241,11 @@ def main() -> int:
     t0 = time.monotonic()
     kern = phase_kernels(engine, seqs, live_seqs)
     say(f"kernels phase: {time.monotonic() - t0:.2f} s")
+    if argv == ["--k2-only"]:
+        keys = ("shape", "ms", "launch_ms", "call_ms", "max_abs_err")
+        print(json.dumps({"k2": {lab: {k: kern[("K2", lab)][k] for k in keys} for lab in "ABL"}}), flush=True)
+        print(card_line(), flush=True)
+        return 0
 
     t0 = time.monotonic()
     k4 = phase_counts(engine, seqs)
@@ -1195,6 +1314,11 @@ def main() -> int:
             "live_short_bucket": {key: kern[(k, "L")][key] for key in keys},
             "launches_by_path": {path: n[k] for path, n in paths_launched.items()},
         })
+        if k == "K2":  # ms from a CUDA graph; launch_ms profiled; call_ms host included
+            for key in ("launch_ms", "call_ms"):
+                rows[-1][key] = d[key]
+                for sub, lab in (("phase_b", "B"), ("live_short_bucket", "L")):
+                    rows[-1][sub][key] = kern[(k, lab)][key]
     d = gru["B256"]
     rows.append({
         "name": "gru_layer", "route": "cuda", "source": "readbouncer_tpu_torch/ops/csrc/gru.cu",
@@ -1208,6 +1332,7 @@ def main() -> int:
         "h96": {key: gru["H96"][key] for key in keys + ("library_ms",)},
         "launches_per_tick": gru["launches_per_tick"],
         "logits_max_abs_err": gru["logits_max_abs_err"], "tokens_differ": gru["tokens_differ"],
+        "logits_f64_err": gru["logits_f64_err"],
         "launches_by_path": {path: n["K3"] for path, n in paths_launched.items()},
     })
     rows.append({
@@ -1248,7 +1373,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         rc = 1

@@ -84,7 +84,7 @@ _SIGNATURES = {
     },
     "gru": {
         "rb_gru_layer": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR],
-        "rb_gru_rows": [_I32, _I32],
+        "rb_gru_config": [_I32, _I32, _PTR],
     },
 }
 

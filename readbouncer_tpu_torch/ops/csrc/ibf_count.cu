@@ -28,18 +28,28 @@
 //     planes [2R, P, W] (rows 2r fwd, 2r+1 rc), thresholds thr_b/thr_r [R],
 //     declared-bin mask words [W], F word-aligned segments -> mb, mr [R, F]:
 //     per filter, the max over declared bins whose fwd or rc count reaches
-//     the threshold of max(fwd, rc), 0 if none.  One warp per read, lane p
-//     owns bit p of each word: it rebuilds the two counts of bin w*32+p from
-//     the planes (a broadcast load per plane word), applies both
-//     thresholds, and the warp reduces each segment's max with shuffles.
+//     the threshold of max(fwd, rc), 0 if none.
+//     Design: bit-sliced, 32 bins per word operation, never expanding a
+//     count.  One warp per (read, segment); lane l owns word w0 + l (and
+//     + 32 per further pass of a segment longer than 32 words).  The kernel
+//     is a template on P, so a lane's 2P plane words and its mask word are
+//     loaded into registers by independent loads, coalesced across lanes,
+//     all in flight at once.  Per word: sel = the bins where fwd >= rc, an
+//     MSB-first bit-sliced comparator of the two P-bit numbers, and mx_j =
+//     (f_j & sel) | (r_j & ~sel); per threshold t, ge_f and ge_r from a
+//     bit-sliced comparison with the scalar t (every bin for t <= 0, none
+//     for t >= 2^P), M = mask & (ge_f | ge_r); then the segment's max of mx
+//     over M, MSB first: for j = P-1..0, c = M & mx_j, and where any lane's
+//     c is nonzero (__any_sync) M = c and bit j of the result is set.  No
+//     matched bin, or only bins of count 0, gives 0.  Per lane that is 2P+1
+//     loads, ~10P word operations and 2P warp votes per pass.
 //     Bound: memory.  At the phase-A shape (R=1024, P=8, W=72) the
 //     function moves ~4.7 MB (planes, thresholds, mask; mb and mr): ~1.4 us
-//     at 3.35 TB/s.  Bit-sliced comparators would test 32 bins per word op,
-//     ~9 M int32 ops, far below the int32 rate.  This kernel instead
-//     rebuilds each declared bin's two counts bit by bit (~6 ops per plane
-//     per strand, ~118 M ops), so it runs well above that bound; a later
-//     version compares the bit-sliced counts with the thresholds 32 bins
-//     at a time instead of expanding every bin.
+//     at 3.35 TB/s; its ~9 M bit-sliced word operations sit far below the
+//     int32 rate.  That bound lies below the cost of one launch (a few
+//     microseconds), so this kernel, now about as short as its launch,
+//     still reads below half of it; fusing it into K1's epilogue, so that
+//     it needs no launch of its own, is what would close the gap.
 //
 // K4  rb_accumulate_counts — replaces the Pallas kernel
 //     readbouncer_tpu/ops/ibf_count_pallas.py::_count_kernel (:62),
@@ -68,6 +78,7 @@
 
 #define RB_MAX_PLANES 16
 #define RB_MAX_SEGMENTS 32
+#define RB_DUAL_MAX_WARPS 8  // K2: warps per block, one per (read, segment)
 
 namespace {
 
@@ -134,44 +145,95 @@ struct SegTable {
   int nw[RB_MAX_SEGMENTS];
 };
 
-__global__ void planes_dual_max_kernel(const uint32_t* __restrict__ planes,
-                                       const int* __restrict__ thr_b,
-                                       const int* __restrict__ thr_r,
-                                       const uint32_t* __restrict__ mask,
-                                       SegTable seg, int F, int* __restrict__ mb,
-                                       int* __restrict__ mr, int R, int P,
-                                       int W) {
+// bins (bits) where the P-bit bit-sliced number x is >= the scalar t
+template <int P>
+__device__ __forceinline__ uint32_t ge_scalar(const uint32_t (&x)[P], int t) {
+  if (t <= 0) return ~0u;
+  if (t >= (1 << P)) return 0u;
+  uint32_t gt = 0u, eq = ~0u;
+#pragma unroll
+  for (int j = P - 1; j >= 0; --j) {
+    const uint32_t tj = ((t >> j) & 1) ? ~0u : 0u;
+    gt |= eq & x[j] & ~tj;
+    eq &= ~(x[j] ^ tj);
+  }
+  return gt | eq;
+}
+
+template <int P>
+__global__ void __launch_bounds__(RB_DUAL_MAX_WARPS * 32, 4)  // <= 64 registers: 32 warps an SM
+planes_dual_max_kernel(const uint32_t* __restrict__ planes, const int* __restrict__ thr_b,
+                       const int* __restrict__ thr_r, const uint32_t* __restrict__ mask,
+                       SegTable seg, int F, int* __restrict__ mb, int* __restrict__ mr, int R,
+                       int W) {
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (r >= R) return;  // whole warps leave together
+  const long long g = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (g >= (long long)R * F) return;  // whole warps leave together
+  const int r = (int)(g / F);
+  const int f = (int)(g - (long long)r * F);
   const uint32_t* pf = planes + (size_t)(2 * r) * P * W;
   const uint32_t* pr = pf + (size_t)P * W;
   const int tb = thr_b[r];
   const int tr = thr_r[r];
-  for (int f = 0; f < F; ++f) {
-    int best_b = 0, best_r = 0;
-    const int w_end = seg.w0[f] + seg.nw[f];
-    for (int w = seg.w0[f]; w < w_end; ++w) {
-      if (!((__ldg(mask + w) >> lane) & 1u)) continue;
-      int cf = 0, cr = 0;
-      for (int j = 0; j < P; ++j) {
-        cf |= (int)((__ldg(pf + (size_t)j * W + w) >> lane) & 1u) << j;
-        cr |= (int)((__ldg(pr + (size_t)j * W + w) >> lane) & 1u) << j;
-      }
-      const int mx = max(cf, cr);
-      if (cf >= tb || cr >= tb) best_b = max(best_b, mx);
-      if (cf >= tr || cr >= tr) best_r = max(best_r, mx);
-    }
+  const int w0 = seg.w0[f], nw = seg.nw[f];
+  int best_b = 0, best_r = 0;
+  for (int base = 0; base < nw; base += 32) {  // the same trip count on every lane
+    const bool in = base + lane < nw;
+    const int w = w0 + base + lane;
+    uint32_t fw[P], rw[P];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      best_b = max(best_b, __shfl_xor_sync(0xffffffffu, best_b, o));
-      best_r = max(best_r, __shfl_xor_sync(0xffffffffu, best_r, o));
+    for (int j = 0; j < P; ++j) {
+      fw[j] = in ? __ldg(pf + (size_t)j * W + w) : 0u;
+      rw[j] = in ? __ldg(pr + (size_t)j * W + w) : 0u;
     }
-    if (lane == 0) {
-      mb[(size_t)r * F + f] = best_b;
-      mr[(size_t)r * F + f] = best_r;
+    const uint32_t m = in ? __ldg(mask + w) : 0u;
+    // the declared bins whose fwd or rc count reaches each threshold
+    uint32_t mb_bins = m & (ge_scalar<P>(fw, tb) | ge_scalar<P>(rw, tb));
+    uint32_t mr_bins = m & (ge_scalar<P>(fw, tr) | ge_scalar<P>(rw, tr));
+    uint32_t gt = 0u, eq = ~0u;  // fwd > rc, fwd == rc so far, MSB first
+#pragma unroll
+    for (int j = P - 1; j >= 0; --j) {
+      gt |= eq & fw[j] & ~rw[j];
+      eq &= ~(fw[j] ^ rw[j]);
     }
+    const uint32_t sel = gt | eq;  // fwd >= rc
+#pragma unroll
+    for (int j = 0; j < P; ++j) fw[j] = (fw[j] & sel) | (rw[j] & ~sel);  // now max(fwd, rc)
+    // the warp's max over each bin set, MSB first: keep the bins that have
+    // bit j wherever any lane has one; both thresholds in one pass
+    int pass_b = 0, pass_r = 0;
+#pragma unroll
+    for (int j = P - 1; j >= 0; --j) {
+      const uint32_t cb = mb_bins & fw[j];
+      const uint32_t cr = mr_bins & fw[j];
+      if (__any_sync(0xffffffffu, cb != 0u)) {
+        mb_bins = cb;
+        pass_b |= 1 << j;
+      }
+      if (__any_sync(0xffffffffu, cr != 0u)) {
+        mr_bins = cr;
+        pass_r |= 1 << j;
+      }
+    }
+    best_b = max(best_b, pass_b);
+    best_r = max(best_r, pass_r);
   }
+  if (lane == 0) {
+    mb[(size_t)r * F + f] = best_b;
+    mr[(size_t)r * F + f] = best_r;
+  }
+}
+
+template <int P>
+cudaError_t launch_dual_max(const uint32_t* planes, const int* thr_b, const int* thr_r,
+                            const uint32_t* mask, const SegTable& seg, int F, int* mb,
+                            int* mr, int R, int W, cudaStream_t stream) {
+  const int warps = RB_DUAL_MAX_WARPS;
+  const long long total = (long long)R * F;
+  const unsigned blocks = (unsigned)((total + warps - 1) / warps);
+  planes_dual_max_kernel<P><<<blocks, warps * 32, 0, stream>>>(planes, thr_b, thr_r, mask, seg,
+                                                               F, mb, mr, R, W);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -216,13 +278,32 @@ cudaError_t rb_planes_dual_max(const void* planes, const void* thr_b,
     seg.w0[f] = table[2 * f];
     seg.nw[f] = table[2 * f + 1];
   }
-  const int warps = 4;
-  const unsigned blocks = (unsigned)((R + warps - 1) / warps);
-  planes_dual_max_kernel<<<blocks, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(planes), static_cast<const int*>(thr_b),
-      static_cast<const int*>(thr_r), static_cast<const uint32_t*>(mask_words),
-      seg, F, static_cast<int*>(mb), static_cast<int*>(mr), R, P, W);
-  return cudaGetLastError();
+  const uint32_t* pl = static_cast<const uint32_t*>(planes);
+  const int* tb = static_cast<const int*>(thr_b);
+  const int* tr = static_cast<const int*>(thr_r);
+  const uint32_t* mw = static_cast<const uint32_t*>(mask_words);
+  int* ob = static_cast<int*>(mb);
+  int* orr = static_cast<int*>(mr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (P) {
+    case 1: return launch_dual_max<1>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 2: return launch_dual_max<2>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 3: return launch_dual_max<3>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 4: return launch_dual_max<4>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 5: return launch_dual_max<5>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 6: return launch_dual_max<6>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 7: return launch_dual_max<7>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 8: return launch_dual_max<8>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 9: return launch_dual_max<9>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 10: return launch_dual_max<10>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 11: return launch_dual_max<11>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 12: return launch_dual_max<12>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 13: return launch_dual_max<13>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 14: return launch_dual_max<14>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 15: return launch_dual_max<15>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    case 16: return launch_dual_max<16>(pl, tb, tr, mw, seg, F, ob, orr, R, W, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t rb_accumulate_counts(const void* a_t, void* out, int W, int n_pad,

@@ -23,7 +23,7 @@ import torch
 
 __all__ = ["MAX_HIDDEN", "gru_layer", "gru_layer_plain"]
 
-MAX_HIDDEN = 96  # the widest DeepNano-blitz net; its weights take 111 KB of shared memory
+MAX_HIDDEN = 96  # the widest DeepNano-blitz net; the kernel holds a unit's weights in 72 registers
 
 _PARAM_SHAPES = {
     "r_zr": lambda H: (H, 2 * H),

@@ -37,21 +37,27 @@ def _layer(rng, H, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "B,T,H,reverse", [(1, 1, 48, False), (37, 50, 96, True), (256, 320, 48, False), (300, 7, 5, True)]
+    "B,T,H",
+    [(1, 1, 48), (37, 50, 96), (256, 320, 48), (512, 7, 5), (133, 40, 47), (1100, 24, 96)],
 )
-def test_gru_layer_kernel_matches_plain(B, T, H, reverse):
-    """Any B, T and H <= 96; 1e-5 absolute (the kernel sums each gate's
-    dot product in another order than the plain loop's matmul)."""
+def test_gru_layer_kernel_matches_plain(B, T, H):
+    """Any B, T and H <= 96, both scan directions; 1e-5 absolute (the
+    kernel sums each gate's dot product in another order than the plain
+    loop's matmul).  B=133 and 1100 leave the last block part-filled
+    (2 and 8 batch rows per block on 132 SMs); H=5 and 47 pad the last
+    warp (H * 2 lanes not a multiple of 32) and the last float4 chunk;
+    H <= 48 and H=96 take the two layouts (2 and 4 lanes per unit)."""
     dev = _cuda_or_skip()
     rng = np.random.default_rng(B + T + H)
     layer = _layer(rng, H, dev)
     xg = torch.from_numpy(rng.normal(size=(B, T, 3 * H)).astype(np.float32)).to(dev)
-    before = ops.gru_layer.launches
-    got = ops.gru_layer(layer, xg, reverse=reverse)
-    torch.cuda.synchronize()
-    assert ops.gru_layer.launches == before + 1
-    want = ops.gru_layer_plain(layer, xg, reverse=reverse)
-    assert float((got - want).abs().max()) <= 1e-5
+    for reverse in (False, True):
+        before = ops.gru_layer.launches
+        got = ops.gru_layer(layer, xg, reverse=reverse)
+        torch.cuda.synchronize()
+        assert ops.gru_layer.launches == before + 1
+        want = ops.gru_layer_plain(layer, xg, reverse=reverse)
+        assert float((got - want).abs().max()) <= 1e-5
 
 
 @pytest.mark.gpu
