@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-only
+    python3 chip_smoke.py --k4-k5-only
 
 Drives the port's two paths at full width and holds every kernel against
 its plain version:
@@ -81,21 +82,29 @@ Phases:
             caller, synth48) on a small replay FASTA: output FASTAs,
             decision CSV (less its timing column) and counters equal to
             an in-process run; usage test;
-10. gather — K5 (xor_gather) at the gather probe's --check shapes against
-            numpy, and at its defaults (974,848 indices, CH=2048, NBUF=8) on
-            [154,533, 8, 128] blocks and [1,236,269, 1, 128] rows bit-equal
-            to its plain version, timed beside PyTorch's index_select
-            baselines (torch_block, torch_g3); then the probe tool's four
-            experiments and --check in-process, which must return 0.
+10. gather — K5 (xor_gather) at the gather probe's defaults (974,848
+            indices, CH=2048, NBUF=8) on [154,533, 8, 128] blocks and
+            [1,236,269, 1, 128] rows bit-equal to its plain version, timed
+            (and its kernels per call counted and timed by the profiler)
+            beside PyTorch's index_select baselines (torch_block,
+            torch_g3); then the probe tool's four experiments and --check
+            (the probe's small shapes against numpy) in-process, which must
+            return 0.
 
 Prints one line per phase with its seconds, a JSON line with the
 kernels' numbers, the card line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 
 ``--k2-only`` runs phases 1-4 and prints K2's times at the three shapes
-as one JSON line, then the card line.  A copy of this file placed at the
-root of another checkout of the repo times that checkout's K2 on the same
-inputs the same way: how two versions of K2 are compared in one run.
+as one JSON line, then the card line.  ``--k4-k5-only`` runs phases 1-3,
+K4's counts phase and K5's part of the gather phase, and prints as one
+JSON line K4's and K5's times, the profiler's device time per kernel of
+one call, and K4's SASS (instructions in its window loop per word loaded,
+from cuobjdump, and registers per thread), then the card line.  Both
+modes call only wrapper functions that earlier trees also have, so a copy
+of this file placed at the root of another checkout of the repo times
+that checkout's kernels on the same inputs the same way: how two versions
+of a kernel are compared in one run.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -340,9 +349,11 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def launch_ms(fn, kernel: str, calls: int = 20) -> float:
-    """Device time per launch of the kernels whose name holds ``kernel``,
-    over ``calls`` calls of fn traced by torch.profiler."""
+def kernels_ms(fn, calls: int = 20) -> dict:
+    """Device time per launch and launches of every kernel that ``calls``
+    calls of fn run, from torch.profiler: {name: (ms, launches)}.  The
+    trace may miss a launch or two, so compare launches between kernels,
+    not with ``calls``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -351,9 +362,79 @@ def launch_ms(fn, kernel: str, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    hits = [(ms, n) for ms, n, key in device_rows(prof) if kernel in key]
+    return {key: (ms / n, n) for ms, n, key in device_rows(prof)}
+
+
+def sass_loops(lib_path: Path, kernel: str) -> dict:
+    """K4's SASS, counted: for each function of the library whose name
+    holds ``kernel``, its registers per thread (cuobjdump -res-usage) and,
+    of its loops (a branch back to an earlier instruction), the one whose
+    loads bring the most words: its instructions, the 32-bit words its
+    global loads bring, instructions per word, and its most frequent
+    opcodes."""
+    from readbouncer_tpu_torch.ops._build import find_nvcc
+
+    tool = str(Path(find_nvcc()).parent / "cuobjdump")
+    res = subprocess.run([tool, "-res-usage", str(lib_path)], capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump -res-usage failed: {res.stderr[-500:]}")
+    regs = dict(re.findall(r"Function (\S+):\s*\n?\s*REG:(\d+)", res.stdout))
+    dump = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, timeout=120)
+    check(dump.returncode == 0, f"cuobjdump -sass failed: {dump.stderr[-500:]}")
+    out = {}
+    for block in re.split(r"\n\s*Function : ", dump.stdout)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        instrs, labels = [], {}
+        for line in block.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                labels[m.group(1)] = len(instrs)
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                instrs.append((int(m.group(1), 16), m.group(2)))
+        addr = {a: k for k, (a, _) in enumerate(instrs)}
+
+        def opcode(text: str) -> str:  # "@!P0 LDG.E.128.CONSTANT R4, ..." -> "LDG.E.128.CONSTANT"
+            return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+
+        def words(text: str) -> int:  # the width is in the opcode, not in "[R2.64]"
+            op = opcode(text).split(".")
+            if op[0] != "LDG":
+                return 0
+            return 4 if "128" in op else 2 if "64" in op else 1
+
+        best = None
+        for k, (_, text) in enumerate(instrs):
+            if "BRA" not in text:
+                continue
+            m = re.search(r"`\((\.L_x_\d+)\)", text) or re.search(r"BRA\s+(?:\S+\s+)?(0x[0-9a-f]+)", text)
+            if not m:
+                continue
+            tgt = labels.get(m.group(1)) if m.group(1).startswith(".L") else addr.get(int(m.group(1), 16))
+            if tgt is None or tgt > k:
+                continue
+            body = [t for _, t in instrs[tgt : k + 1]]
+            nw = sum(words(t) for t in body)
+            if nw and (best is None or nw > best["words"]):
+                ops = {}
+                for t in body:
+                    op = opcode(t).split(".")[0]
+                    ops[op] = ops.get(op, 0) + 1
+                top = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:8])
+                best = dict(instructions=len(body), words=nw, per_word=len(body) / nw, opcodes=top)
+        out[name] = dict(registers=int(regs.get(name, -1)), total_instructions=len(instrs), loop=best)
+    check(bool(out), f"no {kernel} function in {lib_path.name}")
+    return out
+
+
+def launch_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Device time per launch of the kernels whose name holds ``kernel``,
+    over ``calls`` calls of fn traced by torch.profiler (kernels_ms)."""
+    hits = [(ms * n, n) for key, (ms, n) in kernels_ms(fn, calls).items() if kernel in key]
     check(bool(hits), f"no {kernel} launch in the profile")
-    return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
+    return sum(t for t, _ in hits) / sum(n for _, n in hits)
 
 
 def time_k2(planes, args) -> dict:
@@ -1141,9 +1222,13 @@ def phase_cli_live(filter_dir: Path, dev, workload) -> None:
     )
 
 
-def phase_gather(dev) -> dict:
-    """K5 at the probe's defaults against its plain version, timed beside
-    PyTorch's index_select baselines; then the probe tool itself."""
+K5_KERNELS = ("parity_kernel", "compact_kernel", "xor_gather_kernel")  # what xor_gather launches
+
+
+def gather_cases(dev) -> dict:
+    """K5 at the probe's defaults against its plain version on blocks and
+    rows, timed, with the kernels one call launches (the profiler's device
+    time per launch, and kernels per call)."""
     out = {}
     for exp in ("cuda_block", "cuda_row"):
         tab, idx = dma_gather_probe.experiment_inputs(exp, GATHER_M, dma_gather_probe.ROWS, dev)
@@ -1169,14 +1254,31 @@ def phase_gather(dev) -> dict:
             ms=cuda_ms(lambda: gather.xor_gather(tab, idx, GATHER_CH, GATHER_NBUF, check=False), 20),
             plain_ms=cuda_ms(lambda: gather.xor_gather_plain(tab, idx), 2, warmup=1),
             bound_ms=bound_ms, bound_by=bound_by,
+            kernels=kernels_ms(lambda: gather.xor_gather(tab, idx, GATHER_CH, GATHER_NBUF, check=False)),
         )
+        # each call launches one gather kernel: K5's launches over the
+        # gather's, rounded, as the trace may miss a launch or two
+        launched = [(name, n) for name, (_, n) in d["kernels"].items() if any(k in name for k in K5_KERNELS)]
+        gathers = sum(n for name, n in launched if "xor_gather_kernel" in name)
+        check(gathers > 0, f"K5 {exp}: no xor_gather_kernel in the profile")
+        d["kernels_per_call"] = round(sum(n for _, n in launched) / gathers)
         say(
             f"gather: K5 {exp} {d['shape']}: kernel {d['ms']:.4f} ms, plain {d['plain_ms']:.3f} ms, bound "
             f"{bound_ms * 1e3:.1f} us ({bound_by}: {odd} of {distinct} distinct slices hit an odd number "
             f"of times, {nbytes / 1e6:.1f} MB, "
             f"{ops / 1e6:.0f} M int ops); bit-equal"
         )
+        for name, (ms, n) in d["kernels"].items():
+            say(f"  K5 {exp} under the profiler: {n} launches, {ms:.4f} ms each: {name[:100]}")
+        say(f"  K5 {exp}: {d['kernels_per_call']:g} kernels per call")
         del tab, idx, got, want
+    return out
+
+
+def phase_gather(dev) -> dict:
+    """K5 at the probe's defaults (gather_cases), PyTorch's index_select
+    baselines, then the probe tool itself."""
+    out = gather_cases(dev)
     tab, idx = dma_gather_probe.experiment_inputs("torch_block", GATHER_M, dma_gather_probe.ROWS, dev)
     out["torch_block_ms"] = cuda_ms(lambda: tab.index_select(0, idx), 20)
     block_shape = list(tab.shape)
@@ -1199,8 +1301,8 @@ def phase_gather(dev) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--k2-only"]):
-        print("usage: python3 chip_smoke.py [--k2-only]", file=sys.stderr)
+    if argv not in ([], ["--k2-only"], ["--k4-k5-only"]):
+        print("usage: python3 chip_smoke.py [--k2-only | --k4-k5-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1237,6 +1339,29 @@ def main(argv: list[str]) -> int:
     workload = live_workload(genomes)
     live_seqs = [seq for _, _, seq, _ in workload]
     say(f"live reads: bench_live's {len(workload)} reads of {LIVE_READ_LEN} bp: {time.monotonic() - t0:.2f} s")
+
+    if argv == ["--k4-k5-only"]:
+        t0 = time.monotonic()
+        k4 = phase_counts(engine, seqs)
+        a_t = torch.zeros((72, 256, 2 * COUNTS_READS), dtype=torch.int32, device=dev)
+        k4["kernels"] = kernels_ms(lambda: ibf_count.accumulate_counts(a_t))
+        k4["sass"] = sass_loops(load_library("ibf_count").path, "accumulate_counts")
+        for name, d in k4["sass"].items():
+            say(f"  K4 SASS {name}: {d['registers']} registers, {d['total_instructions']} instructions; "
+                f"window loop {d['loop']}")
+        del a_t
+        say(f"counts phase: {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        k5 = gather_cases(dev)
+        say(f"gather phase: {time.monotonic() - t0:.2f} s")
+        keys = ("shape", "ms", "bound_ms", "max_abs_err", "kernels")
+        print(json.dumps({
+            "k4": {k: k4[k] for k in keys + ("zeros_ms", "sass")},
+            "k5": {exp: {k: k5[exp][k] for k in keys + ("odd", "distinct", "kernels_per_call")}
+                   for exp in ("cuda_block", "cuda_row")},
+        }), flush=True)
+        print(card_line(), flush=True)
+        return 0
 
     t0 = time.monotonic()
     kern = phase_kernels(engine, seqs, live_seqs)
@@ -1348,8 +1473,8 @@ def main(argv: list[str]) -> int:
         "replaces": "scripts/dma_gather_probe.py:59", "launches": k5["launches"],
         "max_abs_err": max(blk["max_abs_err"], row["max_abs_err"]), "ms": blk["ms"], "plain_ms": blk["plain_ms"],
         "bound_ms": blk["bound_ms"], "bound_by": blk["bound_by"], "library_ms": None, "shape": blk["shape"],
-        "cuda_row": {key: row[key] for key in keys + ("distinct", "odd")}, "distinct": blk["distinct"],
-        "odd": blk["odd"],
+        "cuda_row": {key: row[key] for key in keys + ("distinct", "odd", "kernels_per_call")}, "distinct": blk["distinct"],
+        "odd": blk["odd"], "kernels_per_call": blk["kernels_per_call"],
         "baselines": {"torch_block_ms": k5["torch_block_ms"], "torch_g3_ms": k5["torch_g3_ms"]},
         "launches_by_path": {"tool_dma_gather_probe": k5["launches"]},
     })

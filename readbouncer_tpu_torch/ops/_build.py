@@ -80,7 +80,7 @@ _SIGNATURES = {
         "rb_accumulate_counts": [_PTR, _PTR, _I32, _I32, _I32, _PTR],
     },
     "gather_probe": {
-        "rb_xor_gather": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR],
+        "rb_xor_gather": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR],
     },
     "gru": {
         "rb_gru_layer": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR],

@@ -57,21 +57,46 @@
 //     count accumulation.  a_t [W, n_pad, R2] membership words (read-strand
 //     q on the fastest axis, padded windows zero) -> counts [W, 32, R2]
 //     int32: counts[w, p, q] is the number of windows i whose word
-//     a_t[w, i, q] has bit p set (bin w*32+p of read-strand q).  One thread
-//     per (w, q) column, q fastest so a warp's loads of one window row are
-//     coalesced; 32 int32 counters in registers; a loop over the windows;
-//     32 coalesced stores.  The TPU kernel's (wb, wcb, r2b) blocks carried
-//     the sum in VMEM across a sequential window grid axis; here the
-//     window loop inside the thread takes that place.
-//     Bound: at the profile_realistic shape (W=72, n_pad=256, R2=4096) it
-//     reads 302 MB and writes 37.7 MB, a 0.101 ms floor at 3.35 TB/s; the
-//     least integer work (a bit-sliced carry-save add per word, as K1
-//     does, then one expansion) is ~0.3 G ops, far below the int32 rate,
-//     so bytes bound it.  This kernel's source does a shift, a mask and
-//     an add per bit (~96 ops per word, ~7 G at this shape) and it runs
-//     several times its bound; what limits it is not measured (the
-//     instructions the compiler emits were not counted).  A later version
-//     counts bit-sliced, as K1 does, and expands once.
+//     a_t[w, i, q] has bit p set (bin w*32+p of read-strand q).  The TPU
+//     kernel's (wb, wcb, r2b) blocks carried the sum in VMEM across a
+//     sequential window grid axis; here loops inside the threads and a
+//     combine across lanes take that place.
+//     Bound: bytes.  At the profile_realistic shape (W=72, n_pad=256,
+//     R2=4096) it reads 302 MB and writes 37.7 MB, a 0.101 ms floor at
+//     3.35 TB/s.  The earlier version kept 32 int counters per column and
+//     did a shift, a mask and an add per bit: its window loop compiled to
+//     ~82 SASS instructions a word, ~80 of them on the integer pipe (64
+//     lanes a clock per SM): >= 0.36 ms of issue at this shape and the
+//     1.98 GHz boost clock, against the ~0.40 ms it took, on zeros as on
+//     real words (4x its byte bound).  This
+//     one counts bit-sliced and expands once, a few operations a word:
+//     * Counters.  A thread owns V columns (V = 4 with 16-byte loads
+//       along q where R2 % 4 == 0 and both pointers are 16-byte aligned,
+//       else V = 1) and one of RB_COUNTS_CHUNKS contiguous chunks of the
+//       window axis; per column it keeps RB_COUNTS_PLANES bit planes
+//       (bit j of 32 bins' counts per word), exact for a chunk of at most
+//       2^8 - 1 = 255 windows.
+//     * Fold.  Harley-Seal: each group of 8 windows goes through 7 carry-
+//       save adders (each a full adder of two LOP3s: xor3 and majority)
+//       into planes 0-2, and only the group's weight-8 carry ripples into
+//       planes 3-7 (2 operations a plane): ~3.25 operations a word.
+//     * Combine.  The chunk lanes of a column are neighbours in a warp;
+//       two butterfly rounds of __shfl_xor_sync add their planes with
+//       bit-sliced ripple adders (8 -> 9 -> 10 planes), so every chunk
+//       lane holds the column's exact count of up to 1,020 windows.
+//     * Expand.  Each chunk lane expands 8 of the 32 bins from the 10
+//       planes and stores them, one 16-byte store per bin with V = 4.
+//     * Windows past 1,020 (4 chunks of 255) go to further segments
+//       (blockIdx.y); with more than one segment the entry point zeroes
+//       the output and the segments add their counts with atomicAdd, so
+//       counts stay exact for any n_pad.
+//     The 4 chunk lanes per column also give 4x the threads (4.4 waves
+//     at 2 blocks an SM at this shape, not the 1.09 of one thread per
+//     column) and more loads in flight: 8 independent 16-byte loads per
+//     thread per group.  The window loop compiles to ~4 SASS instructions
+//     per word loaded, which the card issues well inside the time the
+//     bytes take, so the bytes bound it (chip_smoke.py --k4-k5-only counts
+//     both versions' loops).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +104,10 @@
 #define RB_MAX_PLANES 16
 #define RB_MAX_SEGMENTS 32
 #define RB_DUAL_MAX_WARPS 8  // K2: warps per block, one per (read, segment)
+#define RB_COUNTS_THREADS 256
+#define RB_COUNTS_CHUNKS 4  // K4: lanes per column, one per chunk of the window axis
+#define RB_COUNTS_PLANES 8  // K4: bit planes per chunk lane, <= 255 windows a chunk
+#define RB_COUNTS_SEGMENT (RB_COUNTS_CHUNKS * ((1 << RB_COUNTS_PLANES) - 1))  // 1,020 windows
 
 namespace {
 
@@ -118,26 +147,182 @@ cudaError_t launch_accumulate(const uint32_t* a, uint32_t* out, int R2, int n,
   return cudaGetLastError();
 }
 
-__global__ void accumulate_counts_kernel(const uint32_t* __restrict__ a,
-                                         int* __restrict__ out, int W,
-                                         int n_pad, int R2) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)W * R2) return;
-  const int w = (int)(idx / R2);
-  const int q = (int)(idx - (long long)w * R2);
-  const uint32_t* src = a + (size_t)w * n_pad * R2 + q;
-  int c[32];
-#pragma unroll
-  for (int p = 0; p < 32; ++p) c[p] = 0;
-#pragma unroll 4
-  for (int i = 0; i < n_pad; ++i) {
-    const uint32_t x = __ldg(src + (size_t)i * R2);
-#pragma unroll
-    for (int p = 0; p < 32; ++p) c[p] += (int)((x >> p) & 1u);
+__device__ __forceinline__ uint32_t xor3(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x96;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t maj3(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xE8;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// carry-save adder: a + b + c = lo + 2 hi, bitwise over 32 bins
+__device__ __forceinline__ void csa(uint32_t& hi, uint32_t& lo, uint32_t a, uint32_t b, uint32_t c) {
+  lo = xor3(a, b, c);
+  hi = maj3(a, b, c);
+}
+
+template <int V>
+__device__ __forceinline__ void load_words(const uint32_t* p, uint32_t (&x)[V]) {
+  if constexpr (V == 4) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = u.z;
+    x[3] = u.w;
+  } else {
+    x[0] = __ldg(p);
   }
-  int* dst = out + (size_t)w * 32 * R2 + q;
+}
+
+// Harley-Seal: add 8 words into the bit-sliced counter p[0..P) of one column
+template <int P>
+__device__ __forceinline__ void fold8(uint32_t (&p)[P], uint32_t x0, uint32_t x1, uint32_t x2,
+                                      uint32_t x3, uint32_t x4, uint32_t x5, uint32_t x6,
+                                      uint32_t x7) {
+  uint32_t twos_a, twos_b, fours_a, fours_b, eights;
+  csa(twos_a, p[0], p[0], x0, x1);
+  csa(twos_b, p[0], p[0], x2, x3);
+  csa(fours_a, p[1], p[1], twos_a, twos_b);
+  csa(twos_a, p[0], p[0], x4, x5);
+  csa(twos_b, p[0], p[0], x6, x7);
+  csa(fours_b, p[1], p[1], twos_a, twos_b);
+  csa(eights, p[2], p[2], fours_a, fours_b);
 #pragma unroll
-  for (int p = 0; p < 32; ++p) dst[(size_t)p * R2] = c[p];
+  for (int j = 3; j < P; ++j) {  // ripple the weight-8 carry
+    const uint32_t t = p[j] & eights;
+    p[j] ^= eights;
+    eights = t;
+  }
+}
+
+// fold8 for each of a lane's V columns
+template <int P, int V>
+__device__ __forceinline__ void fold_columns(uint32_t (&p)[P][V], const uint32_t (&x)[8][V]) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    uint32_t pv[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) pv[j] = p[j][v];
+    fold8<P>(pv, x[0][v], x[1][v], x[2][v], x[3][v], x[4][v], x[5][v], x[6][v], x[7][v]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) p[j][v] = pv[j];
+  }
+}
+
+// bit-sliced sum of this lane's and lane (lane ^ mask)'s P-plane counters
+template <int P, int V>
+__device__ __forceinline__ void add_partner(const uint32_t (&a)[P][V], uint32_t (&s)[P + 1][V],
+                                            int mask) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    uint32_t carry = 0u;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const uint32_t b = __shfl_xor_sync(0xffffffffu, a[j][v], mask);
+      s[j][v] = xor3(a[j][v], b, carry);
+      carry = maj3(a[j][v], b, carry);
+    }
+    s[P][v] = carry;
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(RB_COUNTS_THREADS, 2)
+accumulate_counts_kernel(const uint32_t* __restrict__ a, int* __restrict__ out, int W, int n_pad,
+                         int R2) {
+  constexpr int NC = RB_COUNTS_CHUNKS, P = RB_COUNTS_PLANES, BINS = 32 / NC;
+  const int c = threadIdx.x & (NC - 1);  // this lane's chunk of the window axis
+  const int groups = R2 / V;            // column groups per word w
+  const long long cg = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / NC;
+  const bool live = cg < (long long)W * groups;  // dead lanes still join the shuffles
+  const int w = live ? (int)(cg / groups) : 0;
+  const int q = live ? (int)(cg - (long long)w * groups) * V : 0;
+  const int s0 = blockIdx.y * RB_COUNTS_SEGMENT;
+  const int seg = min(RB_COUNTS_SEGMENT, n_pad - s0);
+  const int L = (seg + NC - 1) / NC;
+  const int i0 = s0 + min(c * L, seg);
+  const int i1 = live ? s0 + min((c + 1) * L, seg) : i0;
+  const uint32_t* src = a + (size_t)w * n_pad * R2 + q;
+
+  uint32_t p[P][V];
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+#pragma unroll
+    for (int v = 0; v < V; ++v) p[j][v] = 0u;
+  int i = i0;
+  for (; i + 8 <= i1; i += 8) {
+    uint32_t x[8][V];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) load_words<V>(src + (size_t)(i + k) * R2, x[k]);
+    fold_columns<P, V>(p, x);
+  }
+  if (i < i1) {  // the chunk's last, partial group: missing windows add 0
+    uint32_t x[8][V];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (i + k < i1) {
+        load_words<V>(src + (size_t)(i + k) * R2, x[k]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) x[k][v] = 0u;
+      }
+    }
+    fold_columns<P, V>(p, x);
+  }
+
+  // the column's 4 chunk lanes are lanes 4k..4k+3 of one warp: a butterfly
+  uint32_t t9[P + 1][V], t10[P + 2][V];
+  add_partner<P, V>(p, t9, 1);
+  add_partner<P + 1, V>(t9, t10, 2);
+  if (!live) return;
+
+  // expand bins c*8 .. c*8+7 of each column from the 10 planes
+#pragma unroll
+  for (int j = 0; j < P + 2; ++j)
+#pragma unroll
+    for (int v = 0; v < V; ++v) t10[j][v] >>= c * BINS;
+  int* dst = out + (size_t)w * 32 * R2 + q;
+  const bool atomic = gridDim.y > 1;
+#pragma unroll
+  for (int k = 0; k < BINS; ++k) {
+    int cnt[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      uint32_t n = 0u;
+#pragma unroll
+      for (int j = 0; j < P + 2; ++j) n |= ((t10[j][v] >> k) & 1u) << j;
+      cnt[v] = (int)n;
+    }
+    int* d = dst + (size_t)(c * BINS + k) * R2;
+    if (atomic) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) atomicAdd(d + v, cnt[v]);
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<int4*>(d) = make_int4(cnt[0], cnt[1], cnt[2], cnt[3]);
+    } else {
+      d[0] = cnt[0];
+    }
+  }
+}
+
+template <int V>
+cudaError_t launch_counts(const uint32_t* a, int* out, int W, int n_pad, int R2,
+                          cudaStream_t stream) {
+  const int threads = RB_COUNTS_THREADS;
+  const long long lanes = (long long)W * (R2 / V) * RB_COUNTS_CHUNKS;
+  const unsigned segments = (unsigned)((n_pad + RB_COUNTS_SEGMENT - 1) / RB_COUNTS_SEGMENT);
+  if (segments > 1) {  // the segments add into a zeroed output
+    const cudaError_t err =
+        cudaMemsetAsync(out, 0, (size_t)W * 32 * R2 * sizeof(int), stream);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((lanes + threads - 1) / threads), segments);
+  accumulate_counts_kernel<V><<<grid, threads, 0, stream>>>(a, out, W, n_pad, R2);
+  return cudaGetLastError();
 }
 
 struct SegTable {
@@ -308,12 +493,14 @@ cudaError_t rb_planes_dual_max(const void* planes, const void* thr_b,
 
 cudaError_t rb_accumulate_counts(const void* a_t, void* out, int W, int n_pad,
                                  int R2, void* stream) {
-  const int threads = 256;
-  const long long total = (long long)W * R2;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  accumulate_counts_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a_t), static_cast<int*>(out), W, n_pad, R2);
-  return cudaGetLastError();
+  if (W < 1 || n_pad < 1 || R2 < 1) return cudaErrorInvalidValue;
+  const uint32_t* src = static_cast<const uint32_t*>(a_t);
+  int* dst = static_cast<int*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = R2 % 4 == 0 && reinterpret_cast<uintptr_t>(a_t) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return vec ? launch_counts<4>(src, dst, W, n_pad, R2, s)
+             : launch_counts<1>(src, dst, W, n_pad, R2, s);
 }
 
 const char* rb_error_string(int err) {

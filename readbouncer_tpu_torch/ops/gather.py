@@ -5,11 +5,15 @@ streams the slices of a table through an NBUF-deep ring of async copies
 and XORs them together.  ``xor_gather`` validates its operands, then
 
 * on CPU tensors runs ``xor_gather_plain`` (``tab[idx]`` and a XOR fold);
-* on CUDA tensors launches the CUDA C++ kernel of ``csrc/gather_probe.cu``
-  (built and bound by ``ops/_build.py``), and raises if it cannot.
+* on CUDA tensors calls the entry point of ``csrc/gather_probe.cu`` (built
+  and bound by ``ops/_build.py``), and raises if it cannot.  Since XOR
+  cancels pairs, the entry point reads only the slices hit an odd number
+  of times: three kernels per call (a parity bitmap of the indices, the
+  list of its set bits, the gather and XOR of the listed slices).
 
 There is no fallback from the kernel to the plain version.
-``xor_gather.launches`` goes up by one per kernel launch and nowhere else.
+``xor_gather.launches`` goes up by one per call that launches the
+kernels, and nowhere else.
 Words travel as int32 tensors read as uint32 in CUDA.
 """
 
@@ -28,11 +32,12 @@ def xor_gather(tab: torch.Tensor, idx: torch.Tensor, ch: int, nbuf: int, *, chec
     """XOR of ``tab[idx[j]]`` over every j: tab int32 [N, BR, WD], idx int32
     [M] -> int32 [BR, WD].
 
-    ``ch`` indices go to each block of the kernel (M must be a multiple of
-    it, as ``dma_gather`` asserts) and ``nbuf`` slices are in flight per
-    thread.  The kernel's own limits (a slice of a multiple of 4 words, at
-    most 4,096; 1 <= nbuf <= 16; the ring within a block's shared memory)
-    are checked by its entry point, which refuses the launch.
+    M must be a multiple of ``ch``, as ``dma_gather`` asserts; on the card
+    each block of the gather takes at most ``ch`` entries of the odd-hit
+    list, and ``nbuf`` slices are in flight per thread.  The kernels' own
+    limits (a slice of a multiple of 4 words, at most 4,096; 1 <= nbuf <=
+    16; the ring within a block's shared memory) are checked by the entry
+    point, which then launches nothing.
 
     An index outside [0, N) raises ``IndexError``, as in the plain
     version.  On the card that takes reading back the kernel's error word,
@@ -51,17 +56,21 @@ def xor_gather(tab: torch.Tensor, idx: torch.Tensor, ch: int, nbuf: int, *, chec
         raise ValueError(f"M={M} is not a multiple of CH={ch}")
     if tab.device.type == "cpu":
         return xor_gather_plain(tab, idx)
-    buf = torch.zeros(S + 1, dtype=torch.int32, device=tab.device)  # the result, then the error word
-    out = buf[:S].view(BR, WD)
     if M == 0:
-        return out
+        return torch.zeros((BR, WD), dtype=tab.dtype, device=tab.device)
+    # the result, the error word, the odd-hit count, the parity bitmap;
+    # then the odd-hit list, which min(M, N) bounds
+    buf = torch.zeros(S + 2 + -(-N // 32), dtype=torch.int32, device=tab.device)
+    odd = torch.empty(max(min(M, N), 1), dtype=torch.int32, device=tab.device)
+    out = buf[:S].view(BR, WD)
     from readbouncer_tpu_torch.ops._build import load_library
 
     lib = load_library("gather_probe").lib
     with torch.cuda.device(tab.device):
         err = lib.rb_xor_gather(
             ctypes.c_void_p(tab.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
-            ctypes.c_void_p(buf.data_ptr()), N, S, M, ch, nbuf, _stream(tab),
+            ctypes.c_void_p(buf.data_ptr()), ctypes.c_void_p(odd.data_ptr()), N, S, M, ch, nbuf,
+            _stream(tab),
         )
     _raise_on(err, "xor_gather", "gather_probe")
     xor_gather.launches += 1

@@ -2,11 +2,17 @@
 
 Counterpart of scripts/dma_gather_probe.py, with the same experiments,
 shapes and defaults.  The TPU probe asked whether explicit DMA
-descriptors beat the XLA gather engine's per-index cost; here the
-question is whether K5 (``ops/gather.py::xor_gather``: each block XORs
-CH indices' slices, NBUF 16-byte copies in flight per thread through a
-shared-memory ring) reads the touched table bytes at the card's memory
-rate, and how PyTorch's ``index_select`` compares.
+descriptors beat the XLA gather engine's per-index cost.  XOR cancels
+pairs, so K5 (``ops/gather.py::xor_gather``) reads only the slices hit an
+odd number of times: a parity bitmap of the indices, the list of its set
+bits, and a gather of the listed slices (at most CH per block, NBUF
+16-byte copies in flight per thread through a shared-memory ring).  Here
+the question is whether K5 reads those odd-hit slices at the card's
+memory rate, and how PyTorch's ``index_select``, which gathers every
+index's slice, compares.  The cuda_* experiments print the odd-hit
+slices, the bytes K5 needs (those slices and the indices) and their rate,
+and the per-index rate, labelled effective since most indices' slices
+are never read.
 
     python -m readbouncer_tpu_torch.tools.dma_gather_probe EXP [--m M] [--ch CH] [--nbuf NBUF]
     python -m readbouncer_tpu_torch.tools.dma_gather_probe --check
@@ -108,9 +114,12 @@ def main(argv: list[str] | None = None) -> int:
         dt = timeit(lambda: xor_gather(tab, idx, args.ch, args.nbuf, check=False), device=dev)
         shape = f"[{tab.shape[0]},{tab.shape[1]},{tab.shape[2]}]"
         unit = "blk" if args.exp == "cuda_block" else "row"
+        odd = int((torch.bincount(idx.long(), minlength=tab.shape[0]) & 1).sum())
+        nbytes = odd * tab[0].numel() * 4 + M * 4
         print(
             f"{args.exp} {shape} M={M} CH={args.ch} NBUF={args.nbuf}: {dt * 1e3:.3f} ms  "
-            f"{M / dt / 1e6:.1f} M{unit}/s  ({dt / M * 1e9:.2f} ns/{unit}) {where}"
+            f"{odd} odd-hit slices, {nbytes / 1e6:.1f} MB read at {nbytes / dt / 1e9:.1f} GB/s  "
+            f"effective {M / dt / 1e6:.1f} M{unit}/s ({dt / M * 1e9:.2f} ns/{unit}) {where}"
         )
     elif args.exp == "torch_block":
         dt = timeit(lambda: tab.index_select(0, idx), device=dev)
