@@ -5,7 +5,7 @@
     python3 chip_smoke.py --k2-only
     python3 chip_smoke.py --k4-k5-only
 
-Drives the port's two paths at full width and holds every kernel against
+Drives the port's paths at full width and holds every kernel against
 its plain version:
 
 * offline classify at the bench geometry of bench.py: 3 target + 1
@@ -18,7 +18,10 @@ its plain version:
 * the filter-building usages (``build``, ``update``, FASTA filter inputs)
   on the bench genomes, and the two tools that reach the last two
   kernels: the realistic-geometry profile (K4, the v1 per-bin count
-  accumulation) and the gather probe (K5).
+  accumulation) and the gather probe (K5);
+* the bins-sharded classifier and live classifier over meshes of the one
+  card named several times, a two-process classify, the live loop
+  through the remote basecaller, and the CTC trainer.
 
 Phases:
 
@@ -81,8 +84,33 @@ Phases:
 9. cli live — `python -m readbouncer_tpu_torch` usage target (DeepNano
             caller, synth48) on a small replay FASTA: output FASTAs,
             decision CSV (less its timing column) and counters equal to
-            an in-process run; usage test;
-10. gather — K5 (xor_gather) at the gather probe's defaults (974,848
+            an in-process run, and again with [TPU] mesh_shape = "bins:1";
+            "bins:2" exits non-zero (needs 2 devices, have 1); usage
+            test;
+10. sharded — ShardedFilterStack over cuda:0 repeated on meshes bins:2
+            and data:2,bins:2: per-filter maxima of chunk 0 of every
+            read (classify's phase A, 40 batches of 1,024) bit-equal to
+            the unsharded stack, K1 and K2 launched once per cell and
+            batch; then the live loop of phase 8 (synth48) with
+            ShardedLiveClassifier over data:2,bins:2: 1,024 / 1,024;
+11. multi-process — the CLI's classify in two processes joined by
+            [TPU] coordinator (gloo, a free local port), both on the
+            card, over all 40,960 reads: rank 0 reports 20,493 / 40,960,
+            the .h0 / .h1 FASTAs are disjoint and together the
+            single-process run's;
+12. remote — the CLI's target with caller = "remote" on bench_live's
+            reads (their signals recorded to an .npz), against
+            serve_basecalls in a thread of this process running the
+            synth48 GRU on the card (K3), one read per request: every
+            depletion read unblocked, every other read stopped;
+13. train — the CTC trainer at scripts/train_basecaller.py's shape
+            (H=48, 4 layers, window 66; batch 64 of 160 bases): step 1
+            on the card within 1e-4 relative of the CPU's, 20 steps of
+            the tool's optimizer lower the loss, K3 never launched in
+            training, the data:2 step over cuda:0 twice within 1e-5 of
+            the single step, ms per step; the tracked synth48 net's
+            identity on tests/test_basecaller_e2e.py's draw >= 0.95;
+14. gather — K5 (xor_gather) at the gather probe's defaults (974,848
             indices, CH=2048, NBUF=8) on [154,533, 8, 128] blocks and
             [1,236,269, 1, 128] rows bit-equal to its plain version, timed
             (and its kernels per call counted and timed by the profiler)
@@ -113,19 +141,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import json
+import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch
-from readbouncer_tpu_torch.classify.fused import LiveFused
+from readbouncer_tpu_torch.classify.fused import LiveFused, stack_dual_max
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.classify.policy import classify_decisions
 from readbouncer_tpu_torch.config import ConfigReader
@@ -137,14 +169,21 @@ from readbouncer_tpu_torch.ibf.query_np import counts_np
 from readbouncer_tpu_torch.ibf.storage import IBFData
 from readbouncer_tpu_torch.main import live_config, make_basecaller, make_replay_source
 from readbouncer_tpu_torch.models.basecaller import GRUBasecaller
+from readbouncer_tpu_torch.models.eval import batch_identity
 from readbouncer_tpu_torch.models.gru import frame_signal_t, gru_logits
+from readbouncer_tpu_torch.models.remote import serve_basecalls
+from readbouncer_tpu_torch.models.train import (
+    cosine_decay, ctc_loss, host_params, init_gru_params, make_sharded_train_step, make_train_step, param_leaves, param_tree,
+)
 from readbouncer_tpu_torch.ops import gather
 from readbouncer_tpu_torch.ops import gru as gru_ops
 from readbouncer_tpu_torch.ops import ibf_count
 from readbouncer_tpu_torch.ops._build import load_all, load_library
+from readbouncer_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
+from readbouncer_tpu_torch.parallel.sharded import ShardedFilterStack, ShardedLiveClassifier
 from readbouncer_tpu_torch.stream.replay import NearestLevelBasecaller, ReplayRead, ReplaySource, sequence_to_signal
 from readbouncer_tpu_torch.stream.scheduler import AdaptiveSampler, LiveClassifier, LiveConfig
-from readbouncer_tpu_torch.tools import dma_gather_probe
+from readbouncer_tpu_torch.tools import dma_gather_probe, train_basecaller
 
 ROOT = Path(__file__).resolve().parent
 
@@ -197,6 +236,15 @@ COUNTS_CHUNK = 250
 GATHER_M = 2048 * 2 * 238
 GATHER_CH = 2048
 GATHER_NBUF = 8
+SHARD_MESHES = ("bins:2", "data:2,bins:2")  # over cuda:0 repeated
+LIVE_MESH = "data:2,bins:2"
+MP_PROCESSES = 2
+REMOTE_READS = LIVE_READS
+REMOTE_CHANNELS = LIVE_CHANNELS
+TRAIN_BATCH = 64  # scripts/train_basecaller.py's defaults
+TRAIN_BASES = 160
+TRAIN_STEPS = 20
+TRAIN_LR = 2e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -1088,15 +1136,19 @@ def profile_live_tick(basecaller, classifier, workload) -> None:
         say(f"    {ms:8.3f} ms {count:5d}x {key[:100]}")
 
 
-def phase_live(dev, filters, workload, caller_name: str) -> dict:
+def phase_live(dev, filters, workload, caller_name: str, mesh: str = "") -> dict:
     """The live loop on bench_live's workload; checks every read's action
-    by its origin and that the path's kernels launched."""
+    by its origin and that the path's kernels launched.  With ``mesh``
+    the classifier is ShardedLiveClassifier over cuda:0 repeated."""
     src = ReplaySource(
         reads=[ReplayRead(rid, sig, seq) for rid, sig, seq, _ in workload], channels=LIVE_CHANNELS
     )
     origin = {rid: g for rid, _, _, g in workload}
     cfg = LiveConfig(batch_size=LIVE_BATCH, profile_ticks=True)
-    classifier = LiveClassifier(filters[:3], filters[3:], cfg, device=dev)
+    if mesh:
+        classifier = ShardedLiveClassifier(filters[:3], filters[3:], cfg, _mesh(mesh, dev))
+    else:
+        classifier = LiveClassifier(filters[:3], filters[3:], cfg, device=dev)
     gru = caller_name == "synth48"
     if gru:
         basecaller = GRUBasecaller(network="synth48", max_frames=LIVE_FRAMES, device=dev)
@@ -1122,8 +1174,10 @@ def phase_live(dev, filters, workload, caller_name: str) -> dict:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = _counters()
-    if gru:
+    if gru and not mesh:
         profile_live_tick(basecaller, classifier, workload)
+    if mesh:
+        caller_name = f"{caller_name}, mesh {mesh}"
     lat = np.array(stats.tick_latencies[1:])
     prof = stats.tick_profile[1:]
     bc = [q["basecall_ms"] for q in prof if "basecall_ms" in q]
@@ -1152,6 +1206,10 @@ def phase_live(dev, filters, workload, caller_name: str) -> dict:
           f"live {caller_name}: unclassified {stats.unclassified}, failed {stats.actions_failed}")
     needed = ("K1", "K2", "K3") if gru else ("K1", "K2")
     check(all(launches[k] > 0 for k in needed), f"live {caller_name}: kernel counters {launches}")
+    if mesh:
+        cells = math.prod(parse_mesh_shape(mesh).values())
+        check(launches["K1"] == launches["K2"] and launches["K1"] % cells == 0,
+              f"live {caller_name}: K1 and K2 not launched once per cell and batch: {launches}")
     return d
 
 
@@ -1164,14 +1222,14 @@ def phase_cli_live(filter_dir: Path, dev, workload) -> None:
         fasta.write_text("".join(f">{rid}\n{seq}\n" for rid, _, seq, _ in workload[:CLI_LIVE_READS]))
         q = lambda ps: ", ".join(f'"{filter_dir / f"{bench_name(i)}.ribf"}"' for i in ps)
 
-        def config(name, usage):
+        def config(name, usage, tpu=""):
             cfg = td / f"{name}.toml"
             cfg.write_text(
                 f'usage = "{usage}"\noutput_directory = "{td / name}"\nlog_directory = "{td / "log"}"\n\n'
                 f"[IBF]\nkmer_size = 13\nexp_seq_error_rate = {ERROR_RATE}\n"
                 f"target_files = [{q(range(3))}]\ndeplete_files = [{q([3])}]\n\n"
                 f'[Basecaller]\ncaller = "DeepNano"\nnetwork = "synth48"\n\n'
-                f'[TPU]\nbatch_size = {LIVE_BATCH}\nreplay_file = "{fasta}"\n'
+                f'[TPU]\nbatch_size = {LIVE_BATCH}\nreplay_file = "{fasta}"\n{tpu}'
             )
             return cfg
 
@@ -1208,6 +1266,19 @@ def phase_cli_live(filter_dir: Path, dev, workload) -> None:
         check(outputs(td / "cli") == outputs(td / "inproc"), "CLI target outputs differ from the in-process run")
         check(stats.unblocked + stats.stop_received == CLI_LIVE_READS and stats.unclassified == 0,
               f"CLI target: {stats.unblocked} + {stats.stop_received} of {CLI_LIVE_READS}")
+        # [TPU] mesh_shape on the one card: bins:1 decides as the run
+        # without a mesh; bins:2 needs two cards and must fail
+        mesh_proc = run_cli(config("mesh", "target", 'mesh_shape = "bins:1"\n'), "target (mesh bins:1)")
+        check(outputs(td / "mesh") == outputs(td / "cli"), "CLI target over mesh bins:1 differs from the run without")
+        check(untimed(mesh_proc.stdout[mesh_proc.stdout.index("-" * 99):mesh_proc.stdout.index("Real time")])
+              == untimed(cli_report), "CLI target over mesh bins:1: counters differ")
+        proc2 = subprocess.run(
+            [sys.executable, "-m", "readbouncer_tpu_torch", "--config",
+             str(config("mesh2", "target", 'mesh_shape = "bins:2"\n'))],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+        )
+        check(proc2.returncode != 0 and "needs 2 devices, have 1" in proc2.stderr,
+              f"CLI target over mesh bins:2 on one card: exit {proc2.returncode}, {proc2.stderr[-500:]}")
         proc = subprocess.run(
             [sys.executable, "-m", "readbouncer_tpu_torch", "--config", str(config("conn", "test"))],
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
@@ -1218,7 +1289,8 @@ def phase_cli_live(filter_dir: Path, dev, workload) -> None:
     say(
         f"cli live: python -m readbouncer_tpu_torch target (DeepNano, synth48) on {CLI_LIVE_READS} reads: "
         f"unblocked {stats.unblocked}, stop_receiving {stats.stop_received}; FASTAs, decision CSV and "
-        f"counters equal to the in-process run; usage test reports {CLI_LIVE_READS} chunks"
+        f"counters equal to the in-process run, and over mesh bins:1; mesh bins:2 exits "
+        f"{proc2.returncode} (needs 2 devices, have 1); usage test reports {CLI_LIVE_READS} chunks"
     )
 
 
@@ -1298,6 +1370,277 @@ def phase_gather(dev) -> dict:
     check(out["launches"] > 0, "the gather probe launched no K5")
     say(f"gather: the probe tool's four experiments and --check returned 0; K5 launches {out['launches']}")
     return out
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh(shape: str, dev):
+    """A mesh of ``shape`` over ``dev`` named once per cell."""
+    return make_mesh(shape, [dev] * math.prod(parse_mesh_shape(shape).values()))
+
+
+def phase_sharded(engine: ClassifyEngine, seqs: list[str]) -> dict:
+    """ShardedFilterStack over cuda:0 repeated (bins:2, data:2,bins:2) on
+    chunk 0 of every read (classify's phase A) in batches of 1,024:
+    maxima bit-equal to the unsharded stack_dual_max, K1 and K2 launched
+    once per cell and batch."""
+    stack, _ = engine._plan
+    dev, cl = engine.device, engine.chunk_length
+    tabs = engine._classifier(1, 0).tabs
+    batches = []
+    for s0 in range(0, len(seqs), BATCH):
+        enc, lens = encode_batch([q[:cl] for q in seqs[s0 : s0 + BATCH]], cl)
+        batches.append((torch.from_numpy(enc).to(dev), torch.from_numpy(lens.astype(np.int64)).to(dev)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [stack_dual_max(stack, r, l, tabs["tb"], tabs["tr"]) for r, l in batches]
+    torch.cuda.synchronize()
+    out = {"batches": len(batches), "unsharded_ms_per_batch": (time.perf_counter() - t0) * 1e3 / len(batches)}
+    for shape in SHARD_MESHES:
+        mesh = _mesh(shape, dev)
+        sharded = ShardedFilterStack(stack, mesh)
+        thr = [(tabs["tb"].index_select(0, l), tabs["tr"].index_select(0, l)) for _, l in batches]
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        got = [sharded.max_counts_dual(r, l, *t) for (r, l), t in zip(batches, thr)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _counters()
+        same = all(torch.equal(g[0], w[0]) and torch.equal(g[1], w[1]) for g, w in zip(got, want))
+        check(same, f"sharded {shape}: maxima differ from the unsharded stack")
+        cells = mesh.size * len(batches)
+        check(launches["K1"] == cells and launches["K2"] == cells,
+              f"sharded {shape}: launches {launches}, expected {cells} of K1 and K2")
+        out[shape] = dict(ms_per_batch=dt * 1e3 / len(batches), launches=launches,
+                          blocks=[[w0, w1, len(segs)] for w0, w1, segs, _ in sharded.shards])
+        say(f"sharded {shape}: {len(batches)} batches of {BATCH} phase-A chunks bit-equal to the unsharded "
+            f"stack; {out[shape]['ms_per_batch']:.2f} ms per batch (unsharded "
+            f"{out['unsharded_ms_per_batch']:.2f}); word blocks {out[shape]['blocks']}; K1 {launches['K1']}, "
+            f"K2 {launches['K2']} launches")
+    return out
+
+
+def phase_multiprocess(filter_dir: Path, seqs: list[str], classified, best, filters) -> dict:
+    """The CLI's classify in two processes under [TPU] coordinator, both on
+    the card, over every read: rank 0 reports 20,493 / 40,960, the .h0 /
+    .h1 FASTAs are disjoint and together the single-process run's."""
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        reads = td / "reads.fasta"
+        reads.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs)))
+        out_dir = td / "out"
+        q = lambda ps: ", ".join(f'"{filter_dir / f"{bench_name(i)}.ribf"}"' for i in ps)
+        port = _free_port()
+        procs = []
+        for rank in range(MP_PROCESSES):
+            cfg = td / f"h{rank}.toml"
+            cfg.write_text(
+                f'usage = "classify"\noutput_directory = "{out_dir}"\nlog_directory = "{td / f"log{rank}"}"\n\n'
+                f"[IBF]\nkmer_size = 13\nexp_seq_error_rate = {ERROR_RATE}\nchunk_length = 250\nmax_chunks = 5\n"
+                f'target_files = [{q(range(3))}]\ndeplete_files = [{q([3])}]\nread_files = ["{reads}"]\n\n'
+                f'[TPU]\nbatch_size = {BATCH}\ncoordinator = "127.0.0.1:{port}"\n'
+                f"num_processes = {MP_PROCESSES}\nprocess_id = {rank}\n"
+            )
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "readbouncer_tpu_torch", "--config", str(cfg)], cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            ))
+        t0 = time.monotonic()
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.monotonic() - t0
+        for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"multi-process classify rank {rank} exited {p.returncode}: {err[-2000:]}")
+        report = outs[0][0]
+        found = re.search(r"Number of classified reads\s*:\s*(\d+)", report)
+        total = re.search(r"Number of all reads\s*:\s*(\d+)", report)
+        check(found is not None and total is not None, f"no aggregate report from rank 0: {report[-2000:]}")
+        check((int(found.group(1)), int(total.group(1))) == (EXPECT_CLASSIFIED, N_READS),
+              f"rank 0 reports {found.group(1)} / {total.group(1)}, expected {EXPECT_CLASSIFIED} / {N_READS}")
+        check("Final Results" not in outs[1][0], "rank 1 printed a report")
+
+        def ids(path):
+            return {ln[1:] for ln in path.read_text().splitlines() if ln.startswith(">")}
+
+        for t, f in enumerate(filters[:3]):
+            h = [ids(out_dir / f"{f.name}.h{r}.fasta") for r in range(MP_PROCESSES)]
+            want = {f"r{i}" for i in np.nonzero(classified & (best == t))[0]}
+            check(not (h[0] & h[1]), f"{f.name}: .h0 and .h1 overlap")
+            check(h[0] | h[1] == want, f"{f.name}: .h0 | .h1 differs from the single-process run")
+            check(all(int(r[1:]) % MP_PROCESSES == k for k in range(MP_PROCESSES) for r in h[k]),
+                  f"{f.name}: a read in another process's file")
+        for r in range(MP_PROCESSES):
+            check((out_dir / f"unclassified.h{r}.fasta").read_text() == "", "unclassified output not empty")
+    d = dict(processes=MP_PROCESSES, classified=int(found.group(1)), reads=int(total.group(1)), wall_s=wall)
+    say(f"multi-process: CLI classify in {MP_PROCESSES} processes (gloo, one card) classified "
+        f"{d['classified']}/{d['reads']} in {wall:.2f} s wall; .h0/.h1 FASTAs disjoint, their union the "
+        f"single-process run's")
+    return d
+
+
+def phase_remote(dev, filter_dir: Path, workload) -> dict:
+    """The CLI's target with caller = "remote" on bench_live's reads (their
+    recorded signals), against serve_basecalls in a thread of this process
+    running the synth48 GRU on the card (K3): every depletion read
+    unblocked, every other read stopped."""
+    caller = GRUBasecaller(network="synth48", max_frames=LIVE_FRAMES, device=dev)
+    caller.basecall([np.zeros(1600, np.float32)])  # warm the library and the B=1 bucket
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    served = []
+
+    def serve():
+        with srv:
+            served.append(serve_basecalls(srv, caller.basecall))
+
+    reads = workload[:REMOTE_READS]
+    if REMOTE_READS < LIVE_READS:
+        say(f"  remote: cut to the first {REMOTE_READS} reads over {REMOTE_CHANNELS} channels")
+    origin = {rid: g for rid, _, _, g in reads}
+    thread = threading.Thread(target=serve, daemon=True)
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        # ReplaySource.save_signals's layout, uncompressed: 295 MB of noisy
+        # float32 signal is slow to deflate and compresses little
+        npz = td / "signals.npz"
+        t0 = time.monotonic()
+        np.savez(npz, **{rid: sig for rid, sig, _, _ in reads},
+                 **{f"__seq__/{rid}": np.frombuffer(seq.encode("ascii"), np.uint8) for rid, _, seq, _ in reads})
+        say(f"  remote: {len(reads)} reads' signals recorded in {time.monotonic() - t0:.2f} s")
+        q = lambda ps: ", ".join(f'"{filter_dir / f"{bench_name(i)}.ribf"}"' for i in ps)
+        cfg = td / "remote.toml"
+        cfg.write_text(
+            f'usage = "target"\noutput_directory = "{td / "out"}"\nlog_directory = "{td / "log"}"\n\n'
+            f"[IBF]\nkmer_size = 13\nexp_seq_error_rate = {ERROR_RATE}\n"
+            f"target_files = [{q(range(3))}]\ndeplete_files = [{q([3])}]\n\n"
+            f"[MinKNOW]\nchannels = [1, {REMOTE_CHANNELS}]\n\n"
+            f'[Basecaller]\ncaller = "remote"\nhost = "127.0.0.1"\nport = "{srv.getsockname()[1]}"\n\n'
+            f'[TPU]\nbatch_size = {LIVE_BATCH}\nreplay_signals = "{npz}"\n'
+        )
+        thread.start()
+        _reset_counters()
+        t0 = time.monotonic()
+        proc = run_cli(cfg, "target (remote caller)")
+        wall = time.monotonic() - t0
+        thread.join(60)
+        launches = _counters()
+        rows = (td / "out" / "read_until_decision_stats.csv").read_text().splitlines()[1:]
+    decided = {r.split(";")[0]: r.split(";")[4] for r in rows}
+    wrong = [rid for rid, g in origin.items() if decided.get(rid) != ("unblock" if g == 3 else "stop_receiving")]
+    unblocked = int(re.search(r"Reads unblocked\s*:\s*(\d+)", proc.stdout).group(1))
+    stopped = int(re.search(r"Reads stop_receiving\s*:\s*(\d+)", proc.stdout).group(1))
+    d = dict(reads=len(reads), channels=REMOTE_CHANNELS, unblocked=unblocked, stop_receiving=stopped,
+             served=served[0] if served else None, wall_s=wall, launches=launches)
+    say(f"remote: CLI target (caller remote) on {len(reads)} reads over {REMOTE_CHANNELS} channels in "
+        f"{wall:.2f} s: unblocked {unblocked}, stop_receiving {stopped}; the server basecalled {d['served']} "
+        f"chunks one per request through the card's GRU, K3 launched {launches['K3']} times")
+    check(not thread.is_alive(), "remote: the basecall server did not finish")
+    check(not wrong, f"remote: {len(wrong)} reads decided against their origin: {wrong[:5]}")
+    check(unblocked == stopped == len(reads) // 2, f"remote: unblocked {unblocked}, stop_receiving {stopped}")
+    check(launches["K3"] > 0, f"remote: kernel counters {launches}")
+    return d
+
+
+def _flat(params) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in param_leaves(params)])
+
+
+def phase_train(dev) -> dict:
+    """The CTC trainer at train_basecaller's shape (rnn48: H=48, 4 layers,
+    window 66; batch 64 of 160 bases): step 1 on the card against the CPU,
+    20 steps of the tool's optimizer lowering the loss with no K3 launch,
+    the data:2 step over cuda:0 twice against the single step, and the
+    tracked synth48 net's read identity through the basecaller."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1234)
+    batches = [train_basecaller.make_batch(rng, TRAIN_BATCH, TRAIN_BASES)[:4] for _ in range(TRAIN_STEPS)]
+    init = host_params(init_gru_params(torch.Generator().manual_seed(0)))
+
+    def adam(leaves):
+        return torch.optim.Adam(leaves, lr=TRAIN_LR)
+
+    # step 1's loss is the loss of the initial params: the CPU needs the
+    # forward only
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_loss = float(ctc_loss(param_tree(init, "cpu"), *batches[0]))
+    cpu_s = time.perf_counter() - t0
+    params = param_tree(init, dev)
+    step = make_train_step(adam, max_grad_norm=1.0)
+    opt = step.init(params)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, cosine_decay(TRAIN_STEPS, alpha=0.05))
+    k3 = gru_ops.gru_layer.launches
+    losses, step_ms = [], []
+    for i, b in enumerate(batches):
+        # the last step runs under the profiler, for its launches and
+        # device busy time
+        last = i == len(batches) - 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last else nullcontext() as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, b)
+            sched.step()
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    k3_moved = gru_ops.gru_layer.launches - k3
+    first = {"cpu": cpu_loss, str(dev): losses[0]}
+    rel = abs(first[str(dev)] - first["cpu"]) / abs(first["cpu"])
+    prof_wall_ms = step_ms[-1]
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    ctc_kernels = sorted({m.group(0) for r in rows if (m := re.search(r"ctc_\w+", r[2]))})
+    # data:2 over cuda:0 twice against the single step, both SGD (Adam's
+    # first step is about lr * sign(g): it would amplify a rounding of a
+    # gradient near 0 into a difference of 2 * lr)
+    sgd = {}
+    for name, make in (("single", make_train_step),
+                       ("data:2", lambda f: make_sharded_train_step(_mesh("data:2", dev), f))):
+        p = param_tree(init, dev)
+        s = make(lambda leaves: torch.optim.SGD(leaves, lr=0.1))
+        p, _, loss = s(p, s.init(p), batches[0])
+        sgd[name] = (float(loss), _flat(p))
+    sh_rel = abs(sgd["data:2"][0] - sgd["single"][0]) / abs(sgd["single"][0])
+    sh_err = float((sgd["data:2"][1] - sgd["single"][1]).abs().max())
+    # tests/test_basecaller_e2e.py's draw, through the port's basecaller
+    caller = GRUBasecaller(network="synth48", device=dev)
+    erng = np.random.default_rng(777)
+    seqs = ["".join("ACGT"[i] for i in erng.integers(0, 4, int(erng.integers(150, 400)))) for _ in range(12)]
+    signals = [sequence_to_signal(s, rng=erng) for s in seqs]
+    ident = batch_identity(seqs, caller.basecall(signals))
+    d = dict(step1_loss_card=first[str(dev)], step1_loss_cpu=first["cpu"], step1_rel_err=rel,
+             losses=losses, ms_per_step=float(np.median(step_ms[1:-1])), k3_launches_in_training=k3_moved,
+             cpu_forward_s=cpu_s, profiled_step_wall_ms=prof_wall_ms, profiled_step_device_busy_ms=busy_ms,
+             profiled_step_launches=sum(r[1] for r in rows), ctc_kernels=ctc_kernels, sharded_loss_rel_err=sh_rel, sharded_param_max_err=sh_err,
+             synth48_identity=ident)
+    say(f"train: rnn48 (H=48, 4 layers), batch {TRAIN_BATCH} x {TRAIN_BASES} bases: step-1 loss card "
+        f"{first[str(dev)]:.6f} / CPU {first['cpu']:.6f} (rel {rel:.2e}); {TRAIN_STEPS} steps loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {d['ms_per_step']:.1f} ms per step on {card_line()} (one step "
+        f"under the profiler: {d['profiled_step_launches']} kernel launches, device busy {busy_ms:.1f} of "
+        f"{prof_wall_ms:.1f} ms); CPU forward {cpu_s:.1f} s; K3 "
+        f"launches in training {k3_moved}; CTC kernels {ctc_kernels}; data:2 step vs single: loss rel "
+        f"{sh_rel:.2e}, params {sh_err:.2e}; synth48 identity {ident:.4f}")
+    check(rel <= 1e-4, f"train: step-1 loss on the card {first[str(dev)]} vs CPU {first['cpu']}")
+    check(losses[-1] < losses[0], f"train: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    check(k3_moved == 0, f"train: K3 launched {k3_moved} times in training")
+    check(sh_rel <= 1e-5 and sh_err <= 1e-5, f"train: data:2 step vs single: loss {sh_rel}, params {sh_err}")
+    check(ident >= 0.95, f"train: synth48 identity {ident:.4f} < 0.95")
+    return d
+
 
 
 def main(argv: list[str]) -> int:
@@ -1416,12 +1759,43 @@ def main(argv: list[str]) -> int:
         phase_cli_live(filter_dir, dev, workload)
         say(f"cli live phase: {time.monotonic() - t0:.2f} s")
 
+        t0 = time.monotonic()
+        sharded = phase_sharded(engine, seqs)
+        live["sharded"] = phase_live(dev, filters, workload, "synth48", mesh=LIVE_MESH)
+        sharded["seconds"] = time.monotonic() - t0
+        say(f"sharded phase: {sharded['seconds']:.2f} s")
+        say("sharded: " + json.dumps({**{k: v for k, v in sharded.items() if k not in SHARD_MESHES},
+                                      **{m: {k: v for k, v in sharded[m].items() if k != "launches"}
+                                         for m in SHARD_MESHES},
+                                      "live": {k: v for k, v in live["sharded"].items() if k != "launches"}}))
+
+        t0 = time.monotonic()
+        multi = phase_multiprocess(filter_dir, seqs, classified, best, filters)
+        multi["seconds"] = time.monotonic() - t0
+        say(f"multi-process phase: {multi['seconds']:.2f} s")
+        say("multi-process: " + json.dumps(multi))
+
+        t0 = time.monotonic()
+        remote = phase_remote(dev, filter_dir, workload)
+        remote["seconds"] = time.monotonic() - t0
+        say(f"remote phase: {remote['seconds']:.2f} s")
+        say("remote: " + json.dumps({k: v for k, v in remote.items() if k != "launches"}))
+
+    t0 = time.monotonic()
+    train = phase_train(dev)
+    train["seconds"] = time.monotonic() - t0
+    say(f"train phase: {train['seconds']:.2f} s")
+    say("train: " + json.dumps(train))
+
     t0 = time.monotonic()
     k5 = phase_gather(dev)
     say(f"gather phase: {time.monotonic() - t0:.2f} s")
 
     paths_launched = {"classify": launches, "live_synth48": live["synth48"]["launches"],
-                      "live_oracle": live["oracle"]["launches"]}
+                      "live_oracle": live["oracle"]["launches"],
+                      **{f"sharded_{m}": sharded[m]["launches"] for m in SHARD_MESHES},
+                      f"live_synth48_sharded_{LIVE_MESH}": live["sharded"]["launches"],
+                      "remote_server": remote["launches"]}
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     rows = []
     for k, name, where in (
@@ -1458,7 +1832,8 @@ def main(argv: list[str]) -> int:
         "launches_per_tick": gru["launches_per_tick"],
         "logits_max_abs_err": gru["logits_max_abs_err"], "tokens_differ": gru["tokens_differ"],
         "logits_f64_err": gru["logits_f64_err"],
-        "launches_by_path": {path: n["K3"] for path, n in paths_launched.items()},
+        "launches_by_path": {**{path: n["K3"] for path, n in paths_launched.items()},
+                             "train": train["k3_launches_in_training"]},
     })
     rows.append({
         "name": "accumulate_counts", "route": "cuda", "source": "readbouncer_tpu_torch/ops/csrc/ibf_count.cu",
@@ -1479,7 +1854,7 @@ def main(argv: list[str]) -> int:
         "launches_by_path": {"tool_dma_gather_probe": k5["launches"]},
     })
     say(f"build: {json.dumps(built)}")
-    live_line = {c: {k: v for k, v in d.items() if k != "launches"} for c, d in live.items()}
+    live_line = {c: {k: v for k, v in d.items() if k != "launches"} for c, d in live.items() if c != "sharded"}
     say(f"live: {json.dumps(live_line)}")
     say(f"total: {time.monotonic() - t_all:.1f} s; main path {len(seqs) / dt:.0f} reads/s; live p50 "
         f"{live['synth48']['p50_ms']:.2f} ms per tick (synth48)")

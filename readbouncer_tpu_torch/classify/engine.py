@@ -330,6 +330,8 @@ def classify_read_files(
     batch_size: int = 1024,
     host_batch_reads: int = 16384,
     verbose: bool = True,
+    shard: tuple[int, int] = (0, 1),
+    output_suffix: str = "",
     transfer_mode: str = "serial",
     pipeline_depth: int = 2,
     packing: str = "auto",
@@ -341,7 +343,13 @@ def classify_read_files(
     in flight: batch i+1 is encoded and launched, and batch i-1's FASTAs
     written, while the device computes batch i.  ``transfer_mode``
     ("serial" | "overlap" | "auto") is accepted and ignored, as
-    ``packing`` is by ClassifyEngine."""
+    ``packing`` is by ClassifyEngine.
+
+    ``shard=(i, n)``: only records whose index % n == i are read — the
+    process's input shard in a multi-process run
+    (parallel/distributed.py); the counters then cover this shard (sum
+    them with aggregate_counters).  ``output_suffix`` keeps the
+    processes' FASTAs apart: ``<name>{output_suffix}.fasta``."""
     from readbouncer_tpu_torch.utils.logging import get_logger
 
     engine = ClassifyEngine(
@@ -356,10 +364,10 @@ def classify_read_files(
     results = ClassifyResults()
     results.per_target = {name: 0 for name in engine.target_names}
     target_writers = [
-        FastaWriter(output_dir / f"{name}.fasta")
+        FastaWriter(output_dir / f"{name}{output_suffix}.fasta")
         for name in engine.target_names
     ]
-    unclassified = FastaWriter(output_dir / "unclassified.fasta")
+    unclassified = FastaWriter(output_dir / f"unclassified{output_suffix}.fasta")
     t_start = time.monotonic()
     # a still-unclassified read FAILS once its chunk loop reaches a
     # fragment shorter than k (reference: src/IBF/IBFClassify.cpp:218-225,
@@ -402,7 +410,10 @@ def classify_read_files(
         for read_file in read_files:
             ids: list[str] = []
             seqs: list[str] = []
-            for rec in read_records(read_file):
+            shard_i, shard_n = shard
+            for rec_idx, rec in enumerate(read_records(read_file)):
+                if shard_n > 1 and rec_idx % shard_n != shard_i:
+                    continue
                 results.read_counter += 1
                 if len(rec.seq) < chunk_length:
                     results.too_short += 1

@@ -18,11 +18,15 @@ port covers, on the same TOML schema (config.py):
   ``TargetReads.fasta``, ``DepletedReads.fasta`` and the decision CSV;
 * ``test`` — bring the replay source up and report its first window.
 
-The remote basecaller (``caller = "Guppy"``), the device mesh
-(``mesh_shape``) and multi-process runs (``[TPU] coordinator``) are not
-ported yet: they exit with status 2 and name the ROADMAP item that
-ports them.  The device is the CUDA card unless ``--device cpu`` is
-given.
+``[Basecaller] caller = "Guppy"`` or ``"remote"`` basecalls through a
+TCP basecall server (models/remote.py); ``[TPU] mesh_shape`` runs the
+live classifier bins-sharded over a device mesh (parallel/sharded.py);
+``[TPU] coordinator`` joins a multi-process run (parallel/distributed.py):
+``classify`` shards the read records over the processes, writes
+``<name>.h<rank>.fasta`` and rank 0 prints the summed report, ``target``
+and ``test`` replay the process's share of reads and channels, and
+``build`` and ``update`` run in every process as in one.  The device is
+the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -39,15 +43,6 @@ __all__ = [
     "main", "run_program", "get_filters", "filter_output_path", "make_replay_source",
     "make_basecaller", "live_config",
 ]
-
-NOT_PORTED = {
-    "remote": "M8 (models/remote.py, the remote basecaller) in ROADMAP.md",
-    "mesh": (
-        "M9 (parallel/, the device mesh and multi-process runs: [TPU] coordinator, "
-        "num_processes, process_id) in ROADMAP.md"
-    ),
-}
-
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
@@ -106,15 +101,6 @@ def get_filters(config: ConfigReader, files: list[Path], device, verbose: bool =
     return out
 
 
-def _not_ported(what: str, item: str) -> int:
-    print(
-        f"{what} is not ported to readbouncer_tpu_torch yet; "
-        f"see {item} (python -m readbouncer_tpu runs it)",
-        file=sys.stderr,
-    )
-    return 2
-
-
 def run_build(config: ConfigReader, device, verbose: bool) -> int:
     """reference: main.cpp:286-345 (build usage builds every input file)."""
     get_filters(config, config.ibf.target_files + config.ibf.deplete_files, device, verbose)
@@ -153,11 +139,13 @@ def run_update(config: ConfigReader, device, verbose: bool) -> int:
 
 def run_classify(config: ConfigReader, device, verbose: bool) -> int:
     """reference: main.cpp:346-369 -> classify_reads."""
-    from readbouncer_tpu_torch.classify.engine import classify_read_files
+    from readbouncer_tpu_torch.classify.engine import ClassifyResults, classify_read_files
+    from readbouncer_tpu_torch.parallel.distributed import aggregate_counters, process_count, process_index
 
     targets = get_filters(config, config.ibf.target_files, device, verbose)
     depletes = get_filters(config, config.ibf.deplete_files, device, verbose)
-    classify_read_files(
+    n_proc, idx = process_count(), process_index()
+    results = classify_read_files(
         read_files=config.ibf.read_files,
         target_filters=targets,
         deplete_filters=depletes,
@@ -167,18 +155,41 @@ def run_classify(config: ConfigReader, device, verbose: bool) -> int:
         chunk_length=config.ibf.chunk_length,
         max_chunks=config.ibf.max_chunks,
         batch_size=config.tpu.batch_size,
+        verbose=(n_proc == 1),
+        shard=(idx, n_proc),
+        output_suffix=f".h{idx}" if n_proc > 1 else "",
         transfer_mode=config.tpu.transfer_mode,
         pipeline_depth=config.tpu.pipeline_depth,
         packing=config.tpu.packing,
         device=device,
     )
+    if n_proc > 1:
+        # rank 0 reports the counters summed over every process's shard
+        summed = aggregate_counters({
+            "found": results.found,
+            "failed": results.failed,
+            "too_short": results.too_short,
+            "read_counter": results.read_counter,
+            **{f"t:{k}": v for k, v in results.per_target.items()},
+        })
+        if idx == 0:
+            agg = ClassifyResults(
+                found=summed["found"],
+                failed=summed["failed"],
+                too_short=summed["too_short"],
+                read_counter=summed["read_counter"],
+                per_target={k[2:]: v for k, v in summed.items() if k.startswith("t:")},
+                avg_classify_seconds=results.avg_classify_seconds,
+            )
+            print(agg.report(config.ibf.chunk_length))
     return 0
 
 
 def make_replay_source(config: ConfigReader):
     """The MinKNOW stand-in: a replayed signal stream honoring the
     chunk/action timing contract (recorded signals, or squiggles
-    synthesized from a FASTA)."""
+    synthesized from a FASTA).  In a multi-process run each process
+    replays its share of the reads over its share of the channels."""
     from readbouncer_tpu_torch.errors import ConfigError
     from readbouncer_tpu_torch.stream.replay import ReplaySource
 
@@ -189,18 +200,26 @@ def make_replay_source(config: ConfigReader):
             ".npz) — the replayed signal source standing in for a live "
             "MinKNOW run"
         )
+    from readbouncer_tpu_torch.parallel.distributed import host_shard, process_count
+
     channels = config.minknow.max_channel - config.minknow.min_channel + 1
     if config.tpu.replay_signals:
-        return ReplaySource.from_signals(
+        src = ReplaySource.from_signals(
             config.tpu.replay_signals,
             channels=channels,
             break_seconds=config.tpu.break_reads_after_seconds,
         )
-    return ReplaySource.from_fasta(
-        [config.tpu.replay_file],
-        channels=channels,
-        break_seconds=config.tpu.break_reads_after_seconds,
-    )
+    else:
+        src = ReplaySource.from_fasta(
+            [config.tpu.replay_file],
+            channels=channels,
+            break_seconds=config.tpu.break_reads_after_seconds,
+        )
+    if process_count() > 1:
+        src.reads = host_shard(src.reads)
+        src.channels = max(1, len(host_shard(list(range(src.channels)))))
+        src.__post_init__()
+    return src
 
 
 def make_basecaller(config: ConfigReader, source, device):
@@ -208,14 +227,17 @@ def make_basecaller(config: ConfigReader, source, device):
     "DeepNano" (and any other GPU-server name) is the GRU on the card,
     its max_frames sized for one chunk window (padded to a multiple of
     64) from the loaded net's window and stride and the source's sample
-    rate.  None for the remote caller, which is not ported."""
+    rate; "Guppy" / "remote" is a client of the basecall server at
+    ``[Basecaller] host`` and ``port``."""
     caller = config.basecaller.caller.lower()
     if caller == "oracle":
         from readbouncer_tpu_torch.stream.replay import NearestLevelBasecaller
 
         return NearestLevelBasecaller()
     if caller in ("guppy", "remote"):
-        return None
+        from readbouncer_tpu_torch.models.remote import RemoteBasecaller
+
+        return RemoteBasecaller(host=config.basecaller.host, port=int(config.basecaller.port))
     from readbouncer_tpu_torch.models.basecaller import GRUBasecaller
 
     basecaller = GRUBasecaller(
@@ -244,16 +266,30 @@ def live_config(config: ConfigReader):
     )
 
 
+def live_mesh(config: ConfigReader, device):
+    """The mesh of ``[TPU] mesh_shape`` for the sharded live classifier:
+    over the visible cards, or with ``--device cpu`` over as many CPU
+    shards as the shape asks."""
+    import math
+
+    from readbouncer_tpu_torch.device import resolve_device
+    from readbouncer_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
+
+    shape = parse_mesh_shape(config.tpu.mesh_shape)
+    devices = None
+    if resolve_device(device).type == "cpu":
+        devices = ["cpu"] * math.prod(shape.values())
+    return make_mesh(shape, devices)
+
+
 def run_target(config: ConfigReader, device, verbose: bool) -> int:
     """reference: adaptive_sampling, src/main/adaptive_sampling.hpp:555-774."""
     from readbouncer_tpu_torch.stream.control import ReplayConnection
     from readbouncer_tpu_torch.stream.scheduler import AdaptiveSampler, LiveClassifier
 
-    if config.tpu.mesh_shape:
-        return _not_ported("the live classifier over a device mesh (TPU.mesh_shape)", NOT_PORTED["mesh"])
-    if config.basecaller.caller.lower() in ("guppy", "remote"):
-        return _not_ported(f"caller '{config.basecaller.caller}'", NOT_PORTED["remote"])
     log = get_logger("RUClientLog")
+    # a mesh the devices cannot hold fails here, before any work
+    mesh = live_mesh(config, device) if config.tpu.mesh_shape else None
     targets = get_filters(config, config.ibf.target_files, device, verbose)
     depletes = get_filters(config, config.ibf.deplete_files, device, verbose)
     source = make_replay_source(config)
@@ -265,7 +301,13 @@ def run_target(config: ConfigReader, device, verbose: bool) -> int:
     log.info(conn.summary())
     basecaller = make_basecaller(config, source, device)
     cfg = live_config(config)
-    classifier = LiveClassifier(targets, depletes, cfg, device=device)
+    if mesh is not None:
+        from readbouncer_tpu_torch.parallel.sharded import ShardedLiveClassifier
+
+        classifier = ShardedLiveClassifier(targets, depletes, cfg, mesh)
+        log.info("live classifier: mesh %s", config.tpu.mesh_shape)
+    else:
+        classifier = LiveClassifier(targets, depletes, cfg, device=device)
     sampler = AdaptiveSampler(source, basecaller, classifier, output_dir=config.output_dir, cfg=cfg)
     log.info("live run starting: %d queued reads", len(source.reads))
     # Ctrl-C requests a graceful stop: actions drain and the final block
@@ -320,10 +362,22 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.monotonic()
     config = ConfigReader(args.config).parse()
     if config.tpu.coordinator:
-        # the reference joins a multi-process run here and shards its
-        # inputs and outputs; without that every process would do all
-        # the work and write the same files
-        return _not_ported("a multi-process run ([TPU] coordinator)", NOT_PORTED["mesh"])
+        from readbouncer_tpu_torch.errors import ConfigError
+        from readbouncer_tpu_torch.parallel.distributed import init_distributed, shutdown_distributed
+
+        try:
+            init_distributed(config.tpu.coordinator, config.tpu.num_processes, config.tpu.process_id)
+        except ConfigError as e:
+            print(f"readbouncer-tpu-torch: {e}", file=sys.stderr)
+            return 2
+        try:
+            return _run(args, config, t0)
+        finally:
+            shutdown_distributed()
+    return _run(args, config, t0)
+
+
+def _run(args: argparse.Namespace, config: ConfigReader, t0: float) -> int:
     setup_loggers(config.log_dir)
     config.create_log()
     log = get_logger("ReadBouncerLog")

@@ -1,8 +1,9 @@
 """``python -m readbouncer_tpu_torch`` against ``python -m readbouncer_tpu``
 on one small config: the same TOML file over the same .ribf filters, the
-same output FASTAs and counters.  A multi-process run (``[TPU]
-coordinator`` set), not ported yet, exits 2 naming ROADMAP M9 in every
-usage, before any work.  The live usages (``target``, ``test``) are held
+same output FASTAs and counters.  Under ``[TPU] coordinator`` with one
+process every usage writes and prints what it does without one, and a
+process id outside the group is refused before any work (two-process
+runs: tests/test_torch_distributed.py).  The live usages (``target``, ``test``) are held
 against the JAX CLI in tests/test_torch_cli_live.py, the filter-building
 ones (``build``, ``update``, FASTA filter inputs) in
 tests/test_torch_build_cli.py."""
@@ -10,6 +11,7 @@ tests/test_torch_build_cli.py."""
 import logging
 import os
 import re
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -114,34 +116,82 @@ def test_cli_classify_matches_jax(world, capsys):
     assert (td / "log_port" / "configLog.toml").exists()
 
 
-COORDINATOR = '\n[TPU]\ncoordinator = "localhost:8476"\nnum_processes = 2\nprocess_id = 0\n'
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
-def _coordinated(td, name, **kw):
-    """A config of this file with the multi-process keys set."""
-    cfg = _config(td, name, **kw)
-    cfg.write_text(cfg.read_text().replace("\n[TPU]\nbatch_size = 16\n", COORDINATOR))
-    return cfg
+def _coordinated(cfg, num_processes, process_id):
+    """The config ``cfg`` with the multi-process keys set."""
+    text = cfg.read_text().replace(
+        "\n[TPU]\n",
+        f'\n[TPU]\ncoordinator = "127.0.0.1:{_free_port()}"\nnum_processes = {num_processes}\n'
+        f"process_id = {process_id}\n",
+    )
+    out = cfg.with_name(cfg.stem + "_coord.toml")
+    out.write_text(text.replace(f"out_{cfg.stem}", f"out_{cfg.stem}_coord"))
+    return out
 
 
 def test_cli_fasta_filter_inputs_exit_nonzero(world, capsys):
-    """Under a coordinator FASTA inputs are refused before any filter is built."""
+    """A coordinator with a process id outside [0, num_processes) is
+    refused (exit 2) before any filter is built from the FASTA inputs."""
     td = world
-    cfg = _coordinated(td, "fasta", targets="target.fasta", depletes="deplete.fasta")
+    cfg = _coordinated(_config(td, "fasta", targets="target.fasta", depletes="deplete.fasta"), 2, 2)
     assert port_main(["--config", str(cfg), "--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and "M9" in err and "coordinator" in err and "ROADMAP.md" in err
-    assert not (td / "out_fasta" / "target.ribf").exists()
-    assert not (td / "out_fasta" / "target.fasta").exists()
+    assert "process_id 2" in err and "num_processes" in err
+    assert not (td / "out_fasta_coord").exists() or list((td / "out_fasta_coord").iterdir()) == []
+
+
+def _usage_config(td, usage):
+    """A config of ``usage`` over this file's world: build from the genome
+    FASTAs, update the target filter with the deplete genome, classify
+    over the .ribf filters, target (Oracle caller) and test on the reads."""
+    if usage == "build":
+        return _config(td, usage, usage=usage, targets="target.fasta", depletes="deplete.fasta")
+    if usage == "update":
+        return _config(td, usage, usage=usage, targets="deplete.fasta",
+                       extra=f'update_filter = "{td}/target.ribf"\n')
+    cfg = _config(td, usage, usage=usage)
+    if usage in ("target", "test"):
+        cfg.write_text(cfg.read_text().replace(
+            "\n[TPU]\n", f'\n[Basecaller]\ncaller = "Oracle"\n\n[TPU]\nreplay_file = "{td}/reads.fasta"\n'))
+    return cfg
+
+
+def _untimed(stdout):
+    return [ln for ln in stdout.splitlines()
+            if not any(w in ln for w in ("time", "Time", "latency", "Peak RSS"))]
+
+
+def _output_files(out_dir):
+    """Every output file's text; the decision CSV less its timing column."""
+    files = {}
+    for f in sorted(out_dir.iterdir()):
+        text = f.read_bytes()
+        if f.name == "read_until_decision_stats.csv":
+            text = "\n".join(r.rsplit(";", 1)[0] for r in text.decode().splitlines())
+        files[f.name] = text
+    return files
 
 
 @pytest.mark.parametrize("usage", ["build", "update", "classify", "target", "test"])
-def test_cli_unported_usages_exit_nonzero(world, capsys, usage):
-    """Each usage of a multi-process run exits 2 naming M9, writing nothing."""
+def test_cli_single_process_coordinator_matches_plain_run(world, capsys, usage):
+    """Each usage under ``[TPU] coordinator`` with one process (a gloo
+    group of one) writes the same files and prints the same report as
+    without a coordinator, and leaves no process group behind."""
+    import torch.distributed as dist
+
     td = world
-    extra = f'update_filter = "{td}/target.ribf"\n' if usage == "update" else ""
-    cfg = _coordinated(td, f"u_{usage}", usage=usage, extra=extra)
-    assert port_main(["--config", str(cfg), "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "M9" in err and "coordinator" in err and "ROADMAP.md" in err
-    assert list((td / f"out_u_{usage}").iterdir()) == []
+    cfg = _usage_config(td, usage)
+    assert port_main(["--config", str(cfg), "--device", "cpu"]) == 0
+    plain = capsys.readouterr().out
+    assert port_main(["--config", str(_coordinated(cfg, 1, 0)), "--device", "cpu"]) == 0
+    coord = capsys.readouterr().out
+    assert not dist.is_initialized()
+    assert _untimed(coord) == _untimed(plain)
+    want = _output_files(td / f"out_{usage}")
+    assert _output_files(td / f"out_{usage}_coord") == want
+    assert want if usage != "test" else "chunks in first window" in coord

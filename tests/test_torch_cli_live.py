@@ -2,21 +2,27 @@
 on the live usages: ``target`` with the Oracle and the synth48 GRU
 caller, and from recorded signals, gives the same output FASTAs,
 decision CSV rows (all but the timing column) and final counters;
-``test`` reports the same first window.  The remote caller and the
-device mesh exit 2 naming their ROADMAP item."""
+``test`` reports the same first window; ``target`` with the remote
+caller (a TCP basecall server in a thread) and over the device mesh
+``data:4,bins:2`` gives what the JAX CLI gives."""
 
 import logging
 import os
+import socket
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 from readbouncer_tpu.main import main as jax_main
+from readbouncer_tpu.stream.replay import NearestLevelBasecaller as JaxOracle
 from readbouncer_tpu.stream.replay import ReplaySource as JaxReplaySource
 from readbouncer_tpu_torch.main import main as port_main
+from readbouncer_tpu_torch.models.remote import serve_basecalls
+from readbouncer_tpu_torch.stream.replay import NearestLevelBasecaller
 from torch_live_world import make_world
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -135,14 +141,52 @@ def test_cli_test_usage_matches_jax(world, capsys):
     assert got == want and len(got) == 2 and "7 chunks in first window" in got[1]
 
 
-@pytest.mark.parametrize(
-    "option,item",
-    [({"caller": "Guppy"}, "M8"), ({"tpu": 'mesh_shape = "data:2"\nreplay_file = "x.fasta"'}, "M9")],
-    ids=["remote_caller", "mesh"],
-)
-def test_cli_target_unported_options_exit_nonzero(world, capsys, option, item):
+def _serve(basecall_fn):
+    """A one-connection basecall server (serve_basecalls) in a thread;
+    returns its port."""
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+
+    def run():
+        with srv:
+            serve_basecalls(srv, basecall_fn)
+
+    threading.Thread(target=run, daemon=True).start()
+    return srv.getsockname()[1]
+
+
+def test_cli_target_remote_caller_matches_jax(world, capsys):
+    """caller = "remote": each CLI basecalls through a TCP server running
+    the Oracle; outputs and counters equal, and equal to the Oracle run's
+    decisions."""
     td = world
-    assert port_main(["--config", str(_config(td, f"u_{item}", **option)), "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and item in err and "ROADMAP.md" in err
-    assert not (td / f"out_u_{item}" / "read_until_decision_stats.csv").exists()
+    for pkg, run, oracle in (("jax", jax_main, JaxOracle), ("port", port_main, NearestLevelBasecaller)):
+        cfg = _config(td, f"{pkg}_remote", caller="remote")
+        cfg.write_text(cfg.read_text().replace(
+            'network = "synth48"', f'network = "synth48"\nhost = "127.0.0.1"\nport = "{_serve(oracle().basecall)}"'))
+        args = ["--config", str(cfg)] + (["--device", "cpu"] if pkg == "port" else [])
+        assert run(args) == 0
+        outs = capsys.readouterr().out
+        if pkg == "jax":
+            jax_out = outs
+    _assert_same_run(td, "port_remote", "jax_remote", outs, jax_out)
+    rows = _outputs(td / "out_port_remote")[0]
+    assert sum("unblock" in r for r in rows) == 3 and sum("stop_receiving" in r for r in rows) == 4
+
+
+def test_cli_target_mesh_matches_jax(world, capsys):
+    """[TPU] mesh_shape = "data:4,bins:2": the JAX CLI over its 8 virtual
+    devices and the port's over 8 CPU shards (ShardedLiveClassifier) give
+    the same outputs and counters; the decisions are those of the
+    unsharded run."""
+    td = world
+    tpu = f'mesh_shape = "data:4,bins:2"\nreplay_file = "{td}/reads.fasta"'
+    assert jax_main(["--config", str(_config(td, "jax_mesh", tpu=tpu))]) == 0
+    jax_out = capsys.readouterr().out
+    assert port_main(["--config", str(_config(td, "port_mesh", tpu=tpu)), "--device", "cpu"]) == 0
+    port_out = capsys.readouterr().out
+    _assert_same_run(td, "port_mesh", "jax_mesh", port_out, jax_out)
+    assert port_main(["--config", str(_config(td, "port_unsharded")), "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert _outputs(td / "out_port_mesh") == _outputs(td / "out_port_unsharded")
