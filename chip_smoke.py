@@ -21,7 +21,10 @@ its plain version:
   accumulation) and the gather probe (K5);
 * the bins-sharded classifier and live classifier over meshes of the one
   card named several times, a two-process classify, the live loop
-  through the remote basecaller, and the CTC trainer.
+  through the remote basecaller, and the CTC trainer;
+* the five measurement tools (readbouncer_tpu_torch/tools/bench.py,
+  bench_live.py, bench_build.py, bench_toy.py, profile_classify.py),
+  whose workload helpers this script imports.
 
 Phases:
 
@@ -29,12 +32,12 @@ Phases:
 2. build  — nvcc builds every ops/csrc/*.cu (ibf_count, gru,
             gather_probe), one process each, at once (seconds), with the
             -Xptxas -v register / shared-memory / spill lines;
-3. state  — the four bench genomes regenerated from bench.py's seeds
-            (sha256 equal to the tracked .bench_cache FASTAs), the four
-            filters built on the card (bits sha256 equal to the tracked
-            .bench_cache .ribf files; when those files are in the
-            checkout they are also loaded and compared), merged into one
-            stack of W=72 words;
+3. state  — tools/bench.py::bench_filters: the four bench genomes
+            regenerated from bench.py's seeds (sha256 equal to the
+            tracked .bench_cache FASTAs), the four filters built on the
+            card (bits sha256 equal to the tracked .bench_cache .ribf
+            files; when those files are in the checkout they are also
+            loaded and compared), merged into one stack of W=72 words;
 4. kernels — K1 (accumulate_planes) and K2 (planes_dual_max) on real
             inputs of that stack at the phase-A and phase-B shapes of
             classify and the short bucket of the live loop, bit-equal to
@@ -47,10 +50,12 @@ Phases:
             chunks of 250 bp ([72, 256, 4096], 302 MB): bit-equal to its
             plain version, and reshaped equal to the K1 route's counts of
             the same reads; timed on it and on zeros;
-5. main   — ClassifyEngine on the read set, pipelined as bench.py runs
-            it: exactly 20,493 of 40,960 reads classified, both kernel
-            counters > 0, 256 reads' decisions equal to the numpy oracle,
-            then 3 more timed runs for the spread;
+5. main   — tools/bench.py::run_bench on the read set (a full warm-up
+            run of the pipelined classify, then 3 timed runs, its JSON
+            line printed): exactly 20,493 of 40,960 reads classified in
+            every run, every run deciding as the warm-up, both kernel
+            counters > 0 over the timed runs, 256 reads' decisions equal
+            to the numpy oracle;
    profile — host encode time and one host batch under torch.profiler
             (device busy share, top kernels and the port's own);
             informational;
@@ -76,8 +81,10 @@ Phases:
             beside PyTorch's cuDNN nn.GRU as a yardstick; K3's
             launch (rows per block, slices, threads, registers and local
             memory per thread, which must be 0: no spill) printed;
-8. live   — the live loop on bench_live's workload with the synth48 GRU
-            caller, then with the Oracle caller: 1,024 reads unblocked
+8. live   — tools/bench_live.py::run_bench_live (its warm-ups, the
+            first tick, AdaptiveSampler.run, its JSON line printed) on
+            bench_live's workload with the synth48 GRU caller, then with
+            the Oracle caller; counters from the first tick on: 1,024 reads unblocked
             (every genome-3 read) and 1,024 stop_receiving (every genome-0
             read), nothing unclassified, no failed action, the K1, K2 (and
             with the GRU, K3) counters risen; tick latencies;
@@ -117,10 +124,20 @@ Phases:
             beside PyTorch's index_select baselines (torch_block,
             torch_g3); then the probe tool's four experiments and --check
             (the probe's small shapes against numpy) in-process, which must
-            return 0.
+            return 0;
+15. tools — the other three tools' run_* functions (tools.bench and
+            tools.bench_live ran as phases 5 and 8), each one's launches
+            counted from 0 over the call and its JSON line printed:
+            tools.profile_classify on the first 16,384 reads (decisions
+            equal to phase 5's), tools.bench_toy (its own narrow filters,
+            built on the card; the first 2,048 reads decided as the CPU
+            run of the plain versions decides them, read by read) and
+            tools.bench_build (three builds of a 51.2 Mb genome on the
+            card, the bits of all three equal to one build of the same
+            genome on the CPU).
 
-Prints one line per phase with its seconds, a JSON line with the
-kernels' numbers, the card line, and last
+Prints one line per phase with its seconds, the tools' JSON lines, a
+JSON line with the kernels' numbers, the card line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 
 ``--k2-only`` runs phases 1-4 and prints K2's times at the three shapes
@@ -161,7 +178,7 @@ from readbouncer_tpu_torch.classify.fused import LiveFused, stack_dual_max
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.classify.policy import classify_decisions
 from readbouncer_tpu_torch.config import ConfigReader
-from readbouncer_tpu_torch.ibf.build import build_ibf, build_ibf_records
+from readbouncer_tpu_torch.ibf.build import build_ibf
 from readbouncer_tpu_torch.ibf.hashing import encode_bases
 from readbouncer_tpu_torch.ibf.params import IBFParams
 from readbouncer_tpu_torch.ibf.query import anded_windows, counts
@@ -181,39 +198,22 @@ from readbouncer_tpu_torch.ops import ibf_count
 from readbouncer_tpu_torch.ops._build import load_all, load_library
 from readbouncer_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
 from readbouncer_tpu_torch.parallel.sharded import ShardedFilterStack, ShardedLiveClassifier
-from readbouncer_tpu_torch.stream.replay import NearestLevelBasecaller, ReplayRead, ReplaySource, sequence_to_signal
+from readbouncer_tpu_torch.stream.replay import ReplayRead, ReplaySource, sequence_to_signal
 from readbouncer_tpu_torch.stream.scheduler import AdaptiveSampler, LiveClassifier, LiveConfig
-from readbouncer_tpu_torch.tools import dma_gather_probe, train_basecaller
+from readbouncer_tpu_torch.tools import bench_build, bench_toy, dma_gather_probe, profile_classify, train_basecaller
+from readbouncer_tpu_torch.tools._bench_util import card
+from readbouncer_tpu_torch.tools.bench import BATCH_SIZE as BATCH
+from readbouncer_tpu_torch.tools.bench import (
+    BINS_PER_FILTER, BITS_SHA, ERROR_RATE, FRAGMENT, HOST_BATCH, N_READS, N_TIMED_RUNS, READ_LEN, bench_filters,
+    bench_name, bench_reads, run_bench,
+)
+from readbouncer_tpu_torch.tools.bench_live import TICK_BUDGET_S, live_workload, make_caller, run_bench_live
 
 ROOT = Path(__file__).resolve().parent
 
-# bench.py's geometry and read set
-BINS_PER_FILTER = 512
-FRAGMENT = 100_000
-N_READS = 40_960
-READ_LEN = 1_000
-ERROR_RATE = 0.1
-BATCH = 1_024
-HOST_BATCH = 16_384
-DEPTH = 2
+# bench.py's geometry and read set come from tools/bench.py
 EXPECT_CLASSIFIED = 20_493  # every recorded bench run (BENCH_r03..r05.json)
-# sha256 of the tracked .bench_cache/g{i}_b512_f100000_k13 genome text and
-# of the bits of the matching .ribf (uint32 little-endian bytes);
-# tests/test_torch_storage.py recomputes them from the tracked files
-GENOME_SHA = [
-    "75fa242b6f8f0bafaf649cbf31119969e850e05dba6313251beaf595913469d9",
-    "9c7948641eee1a5189440e0281cf505682d7ec1c7537bb8e171a048a9b69e5aa",
-    "ac348b1590d608b6978914541cc185da33208c2a3196c60a842a0f7cf0765aa9",
-    "79b5a6e0b0ef57aae4e3cfa32da5d882ce9706623cd161b8b0ffe26280be9cff",
-]
-BITS_SHA = [
-    "57743b72d25f1c756559e4f10936b6a02d0b2edeeca4cca4a2796dd8c54cebc2",
-    "17c35e125f0ab9352b9b8534ba411cdc6a86b86f6d75937c9e72116f7ce3101c",
-    "e28fbde15eb1c663be37cad4096352acb92e279ddd24533503ea4144647d9255",
-    "6f2baca9d9d5c668144028003de62089708d66d185ced8177bb9aff640ccbd9c",
-]
 ORACLE_READS = 256
-REPEATS = 3  # timed runs after the counted one, for the run-to-run spread
 CLI_READS = 2_048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -223,7 +223,6 @@ LIVE_READ_LEN = 4_000
 LIVE_CHANNELS = 512
 LIVE_BATCH = 512
 LIVE_FRAMES = 320  # frames of a 0.4 s chunk, (1600 - 66) // 5 + 1 = 307, padded to x64
-TICK_BUDGET_S = 0.4  # break_reads_after_seconds
 CLI_LIVE_READS = 64
 # int32 ALU rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (the fp32 rate
 # of 67 TFLOP/s counts 128 lanes and an FMA as two operations); the IBF
@@ -245,6 +244,8 @@ TRAIN_BATCH = 64  # scripts/train_basecaller.py's defaults
 TRAIN_BASES = 160
 TRAIN_STEPS = 20
 TRAIN_LR = 2e-3
+PROFILE_READS = 16_384  # scripts/profile_classify.py's default
+TOY_CPU_READS = 2_048  # bench_toy's reads decided again on the CPU
 
 
 class SmokeFailure(RuntimeError):
@@ -258,38 +259,6 @@ def check(cond: bool, msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def synth(rng: np.random.Generator, n: int) -> np.ndarray:
-    """bench.py's synth_genome as ASCII bytes."""
-    return np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, size=n)]
-
-
-def bench_name(i: int) -> str:
-    return f"g{i}_b{BINS_PER_FILTER}_f{FRAGMENT}_k13"
-
-
-def bench_genome(i: int) -> np.ndarray:
-    """bench.py's genome i (the sequence of .bench_cache/<bench_name(i)>.fasta)."""
-    return synth(np.random.default_rng(1000 + i), BINS_PER_FILTER * FRAGMENT)
-
-
-def reads_from(rng, genome: np.ndarray, n: int, length: int) -> list[str]:
-    """bench.py's reads_from: substrings with ERROR_RATE substitutions."""
-    starts = rng.integers(0, len(genome) - length, size=n)
-    arr = genome[starts[:, None] + np.arange(length)[None, :]].copy()
-    mut = rng.random((n, length)) < ERROR_RATE
-    arr[mut] = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, size=int(mut.sum()))]
-    return [bytes(r).decode() for r in arr]
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def phase_build() -> None:
@@ -307,24 +276,15 @@ def phase_build() -> None:
 
 
 def phase_state(dev) -> tuple[list[IBFData], list[np.ndarray]]:
-    params = IBFParams(kmer_size=13, fragment_length=FRAGMENT)
-    filters, genomes = [], []
-    for i in range(4):
+    """bench.py's genomes and filters, built on the card by tools/bench.py
+    (which holds each genome and each filter's bits to the tracked
+    .bench_cache hashes); where the tracked .ribf files are in the
+    checkout, each filter is also held equal to its file."""
+    filters, genomes = bench_filters(dev, cache=None)
+    for i, ibf in enumerate(filters):
         name = bench_name(i)
-        g = bench_genome(i)
-        check(
-            hashlib.sha256(g.tobytes()).hexdigest() == GENOME_SHA[i],
-            f"{name}: regenerated genome differs from the tracked bench genome "
-            f"(numpy's generator gives other draws for seed {1000 + i})",
-        )
-        t0 = time.monotonic()
-        ibf, stats = build_ibf_records([(name, g.tobytes().decode())], params, name=name, device=dev)
-        torch.cuda.synchronize()
-        digest = hashlib.sha256(ibf.bits.tobytes()).hexdigest()
-        check(digest == BITS_SHA[i], f"{name}: filter built on the card differs from the tracked .ribf")
         check(ibf.num_bins == BINS_PER_FILTER, f"{name}: {ibf.num_bins} bins")
         tracked = ROOT / ".bench_cache" / f"{name}.ribf"
-        note = "tracked .ribf not in this checkout"
         if tracked.exists():
             ref = IBFData.load(tracked)
             check(
@@ -333,29 +293,8 @@ def phase_state(dev) -> tuple[list[IBFData], list[np.ndarray]]:
                 and np.array_equal(ref.bin_ranges, ibf.bin_ranges),
                 f"{name}: differs from {tracked.name} loaded with the port's loader",
             )
-            note = f"equal to {tracked.name} loaded with the port's loader"
-        say(
-            f"  {name}: rows={ibf.rows} words={ibf.words} built on the card in "
-            f"{time.monotonic() - t0:.2f} s, bits sha256 equal to the tracked filter; {note}"
-        )
-        filters.append(ibf)
-        genomes.append(g)
+            say(f"  {name}: equal to {tracked.name} loaded with the port's loader")
     return filters, genomes
-
-
-def bench_reads(genomes: list[np.ndarray]) -> list[str]:
-    """bench.py's read set, draw for draw."""
-    rng = np.random.default_rng(42)
-    seqs: list[str] = []
-    per_t = N_READS // 6
-    for i in range(3):
-        seqs += reads_from(rng, genomes[i], per_t, READ_LEN)
-    seqs += reads_from(rng, genomes[3], N_READS // 4, READ_LEN)
-    n_rand = N_READS - len(seqs)
-    rand_g = synth(rng, 1_000_000)
-    seqs += reads_from(rng, rand_g, n_rand, READ_LEN)
-    order = rng.permutation(len(seqs))
-    return [seqs[i] for i in order]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -690,24 +629,25 @@ def oracle_decisions(filters: list[IBFData], seq: str, cl: int, C: int):
     return False, -1, attempts
 
 
-def phase_main(engine: ClassifyEngine, filters, seqs: list[str]):
-    engine.classify_sequences(seqs[:2 * BATCH])  # warm-up: allocator, library
-    torch.cuda.synchronize()
-    _reset_counters()
-    t0 = time.perf_counter()
-    classified, best, attempts = engine.classify_sequences_pipelined(
-        seqs, host_batch_reads=HOST_BATCH, depth=DEPTH
-    )
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+def phase_main(dev, engine: ClassifyEngine, filters, seqs: list[str]):
+    """tools.bench's run on the main path, its launches counted over the
+    timed runs; its decisions held to the numpy oracle on ORACLE_READS
+    reads."""
+    out = run_bench(filters[:3], filters[3:], seqs, dev, before_timed=_reset_counters)
     launches = _counters()
-    n_cls = int(classified.sum())
+    line = out["line"]
+    print(json.dumps(line), flush=True)
+    classified, best, attempts = out["classified"], out["best"], out["attempts"]
+    counts = [int(c.sum()) for c in out["classified_by_run"]]
     say(
-        f"main: classified {n_cls}/{len(seqs)} in {dt:.3f} s = {len(seqs) / dt:.0f} reads/s "
-        f"on {torch.cuda.get_device_name(0)}; launches K1={launches['K1']} K2={launches['K2']}; "
-        f"attempts histogram {np.bincount(attempts).tolist()}"
+        f"main: tools.bench classified {counts} of {len(seqs)} in the warm-up and {len(line['run_seconds'])} timed runs "
+        f"({', '.join(f'{t:.3f}' for t in line['run_seconds'])} s), median {line['value']} reads/s on "
+        f"{line['device']}; launches over the timed runs K1={launches['K1']} K2={launches['K2']}; attempts "
+        f"histogram {np.bincount(attempts).tolist()}"
     )
-    check(n_cls == EXPECT_CLASSIFIED, f"classified {n_cls}, expected {EXPECT_CLASSIFIED}")
+    check(all(n == EXPECT_CLASSIFIED for n in counts), f"classified {counts}, expected {EXPECT_CLASSIFIED}")
+    check(all(np.array_equal(c, classified) for c in out["classified_by_run"]),
+          "a run decided otherwise than the warm-up")
     check(launches["K1"] > 0 and launches["K2"] > 0, f"kernel counters {launches}")
     check(((best >= 0) == classified).all(), "best target set exactly for classified reads")
     picks = np.linspace(0, len(seqs) - 1, ORACLE_READS).astype(int)
@@ -717,18 +657,7 @@ def phase_main(engine: ClassifyEngine, filters, seqs: list[str]):
         got = (bool(classified[i]), int(best[i]), int(attempts[i]))
         check(want == got, f"read {i}: engine {got} vs numpy oracle {want}")
     say(f"  {ORACLE_READS} reads' decisions equal the numpy oracle ({time.monotonic() - t1:.1f} s)")
-    repeats = []
-    for _ in range(REPEATS):
-        t0 = time.perf_counter()
-        again = engine.classify_sequences_pipelined(seqs, host_batch_reads=HOST_BATCH, depth=DEPTH)
-        torch.cuda.synchronize()
-        repeats.append(time.perf_counter() - t0)
-        check(np.array_equal(again[0], classified), "a repeated run decided differently")
-    say(
-        f"  {REPEATS} more runs: {', '.join(f'{t:.3f}' for t in repeats)} s; median "
-        f"{len(seqs) / float(np.median(repeats)):.0f} reads/s"
-    )
-    return classified, best, launches, dt
+    return classified, best, attempts, launches, line
 
 
 def device_rows(prof) -> list[tuple[float, int, str]]:
@@ -934,22 +863,6 @@ def phase_tool_profile(filter_dir: Path) -> dict:
 # ---------------------------------------------------------------- live loop
 
 
-def live_workload(genomes: list[np.ndarray]) -> list[tuple[str, np.ndarray, str, int]]:
-    """scripts/bench_live.py's reads, draw for draw: (read id, signal,
-    sequence, genome of origin) for 1,024 reads of genome 0 and 1,024 of
-    genome 3, permuted, with squiggles from the same generator."""
-    rng = np.random.default_rng(7)
-    n_t = LIVE_READS // 2
-    seqs = reads_from(rng, genomes[0], n_t, LIVE_READ_LEN) + reads_from(
-        rng, genomes[3], LIVE_READS - n_t, LIVE_READ_LEN
-    )
-    order = rng.permutation(len(seqs))
-    return [
-        (f"r{i}", sequence_to_signal(seqs[j], rng=rng), seqs[j], 0 if j < n_t else 3)
-        for i, j in enumerate(order)
-    ]
-
-
 def _gru_bound(B: int, T: int, H: int) -> tuple[float, str, int, int]:
     """The least time of one GRU layer's recurrence: xg read and ys written
     once (plus the weights), or its products (6 B T H^2) and gate math
@@ -1136,30 +1049,20 @@ def profile_live_tick(basecaller, classifier, workload) -> None:
         say(f"    {ms:8.3f} ms {count:5d}x {key[:100]}")
 
 
-def phase_live(dev, filters, workload, caller_name: str, mesh: str = "") -> dict:
-    """The live loop on bench_live's workload; checks every read's action
-    by its origin and that the path's kernels launched.  With ``mesh``
-    the classifier is ShardedLiveClassifier over cuda:0 repeated."""
+def sharded_live_run(dev, filters, workload, basecaller, mesh: str):
+    """run_bench_live's loop with ShardedLiveClassifier over ``mesh`` of
+    cuda:0 repeated: the same warm-ups, counters reset before the first
+    tick.  Returns (stats, replayed reads, warm-up s, first tick s, wall s)."""
     src = ReplaySource(
         reads=[ReplayRead(rid, sig, seq) for rid, sig, seq, _ in workload], channels=LIVE_CHANNELS
     )
-    origin = {rid: g for rid, _, _, g in workload}
     cfg = LiveConfig(batch_size=LIVE_BATCH, profile_ticks=True)
-    if mesh:
-        classifier = ShardedLiveClassifier(filters[:3], filters[3:], cfg, _mesh(mesh, dev))
-    else:
-        classifier = LiveClassifier(filters[:3], filters[3:], cfg, device=dev)
-    gru = caller_name == "synth48"
-    if gru:
-        basecaller = GRUBasecaller(network="synth48", max_frames=LIVE_FRAMES, device=dev)
-    else:
-        basecaller = NearestLevelBasecaller()
+    classifier = ShardedLiveClassifier(filters[:3], filters[3:], cfg, _mesh(mesh, dev))
     with tempfile.TemporaryDirectory() as td:
         sampler = AdaptiveSampler(src, basecaller, classifier, output_dir=td, cfg=cfg)
-        # warm both classifier widths and every pow2 GRU bucket the run meets
         t0 = time.monotonic()
         classifier.decide(["ACGT" * (w // 4) for w in classifier.bucket_lens])
-        if gru:
+        if isinstance(basecaller, GRUBasecaller):
             b = 32
             while b <= LIVE_CHANNELS:
                 basecaller.basecall([np.zeros(1600, np.float32)] * b)
@@ -1173,16 +1076,35 @@ def phase_live(dev, filters, workload, caller_name: str, mesh: str = "") -> dict
         stats = sampler.run()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        launches = _counters()
-    if gru and not mesh:
-        profile_live_tick(basecaller, classifier, workload)
+    return stats, src.reads, warm, first, wall
+
+
+def phase_live(dev, filters, workload, caller_name: str, mesh: str = "") -> dict:
+    """The live loop on bench_live's workload: tools.bench_live's run or,
+    with ``mesh``, sharded_live_run; the counters read from the first tick
+    on.  Checks every read's action by its origin and that the path's
+    kernels launched."""
+    origin = {rid: g for rid, _, _, g in workload}
+    gru = caller_name == "synth48"
+    basecaller = make_caller(caller_name, LIVE_FRAMES, dev)
     if mesh:
+        stats, reads, warm, first, wall = sharded_live_run(dev, filters, workload, basecaller, mesh)
+        launches = _counters()
         caller_name = f"{caller_name}, mesh {mesh}"
+    else:
+        out = run_bench_live(filters[:3], filters[3:], workload, basecaller, dev, LIVE_CHANNELS, LIVE_BATCH,
+                             before_timed=_reset_counters)
+        launches = _counters()
+        print(json.dumps(out["line"]), flush=True)
+        stats, reads, warm, first = out["stats"], out["reads"], out["warmup_s"], out["first_tick_s"]
+        wall = first + out["line"]["wall_seconds"]
+        if gru:
+            profile_live_tick(basecaller, out["classifier"], workload)
     lat = np.array(stats.tick_latencies[1:])
     prof = stats.tick_profile[1:]
     bc = [q["basecall_ms"] for q in prof if "basecall_ms" in q]
     cl = [q["classify_ms"] for q in prof if "classify_ms" in q]
-    wrong = [r.read_id for r in src.reads if r.unblocked != (origin[r.read_id] == 3)]
+    wrong = [r.read_id for r in reads if r.unblocked != (origin[r.read_id] == 3)]
     d = dict(
         ticks=stats.ticks, unblocked=stats.unblocked, stop_received=stats.stop_received,
         unclassified=stats.unclassified, actions_failed=stats.actions_failed,
@@ -1629,7 +1551,7 @@ def phase_train(dev) -> dict:
              synth48_identity=ident)
     say(f"train: rnn48 (H=48, 4 layers), batch {TRAIN_BATCH} x {TRAIN_BASES} bases: step-1 loss card "
         f"{first[str(dev)]:.6f} / CPU {first['cpu']:.6f} (rel {rel:.2e}); {TRAIN_STEPS} steps loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {d['ms_per_step']:.1f} ms per step on {card_line()} (one step "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {d['ms_per_step']:.1f} ms per step on {card(dev)} (one step "
         f"under the profiler: {d['profiled_step_launches']} kernel launches, device busy {busy_ms:.1f} of "
         f"{prof_wall_ms:.1f} ms); CPU forward {cpu_s:.1f} s; K3 "
         f"launches in training {k3_moved}; CTC kernels {ctc_kernels}; data:2 step vs single: loss rel "
@@ -1641,6 +1563,57 @@ def phase_train(dev) -> dict:
     check(ident >= 0.95, f"train: synth48 identity {ident:.4f} < 0.95")
     return d
 
+
+
+def phase_tools(dev, filters, seqs: list[str], classified, best, attempts) -> dict:
+    """tools.profile_classify, tools.bench_toy and tools.bench_build (bench
+    and bench_live ran as the main and live phases) on the filters and
+    reads this run already holds; each tool's kernel launches counted
+    from 0 over its call, and its JSON line printed."""
+    targets, depletes = filters[:3], filters[3:]
+    out, launches = {}, {}
+
+    def tool(key, fn):
+        _reset_counters()
+        t0 = time.monotonic()
+        res = fn()
+        launches[key] = _counters()
+        say(f"tools: {key} {time.monotonic() - t0:.2f} s, launches {launches[key]}")
+        print(json.dumps(res["line"]), flush=True)
+        out[key] = res
+        return res
+
+    p = tool("tool_profile_classify",
+             lambda: profile_classify.run_profile_classify(targets, depletes, seqs[:PROFILE_READS], dev))
+    main_decisions = (classified, best, attempts)
+    check(all(np.array_equal(p[k], m[:PROFILE_READS]) for k, m in zip(("classified", "best", "attempts"), main_decisions)),
+          f"tools.profile_classify: decisions on the first {PROFILE_READS} reads differ from tools.bench's")
+
+    toy_genomes, toy_seqs = bench_toy.toy_workload()
+    toy = bench_toy.toy_filters(toy_genomes, dev)
+    t = tool("tool_bench_toy", lambda: bench_toy.run_bench_toy(toy[:3], toy[3:], toy_seqs, dev))
+    # the same reads decided on the CPU, by the kernels' plain versions
+    cpu = ClassifyEngine(toy[:3], toy[3:], error_rate=ERROR_RATE, batch_size=BATCH, device="cpu")
+    want = cpu.classify_sequences(toy_seqs[:TOY_CPU_READS])
+    got = [t[k][:TOY_CPU_READS] for k in ("classified", "best", "attempts")]
+    differ = int(np.logical_or.reduce([g != w for g, w in zip(got, want)]).sum())
+    check(differ == 0, f"tools.bench_toy: {differ} of {TOY_CPU_READS} reads decided otherwise than on the CPU")
+    say(f"tools: bench_toy classified {int(got[0].sum())}/{TOY_CPU_READS} of its first reads on the card, "
+        f"read by read as the CPU run ({int(want[0].sum())}); all {int(t['classified'].sum())}/{len(toy_seqs)}")
+
+    genome = bench_build.build_genome()
+    bb = tool("tool_bench_build", lambda: bench_build.run_bench_build(genome, dev))
+    t0 = time.monotonic()
+    ref = bench_build.run_bench_build(genome, "cpu", runs=1)["bits_sha"][0]
+    check(bb["bits_sha"] == [ref] * len(bb["bits_sha"]),
+          f"tools.bench_build: the card's runs' bits {bb['bits_sha']} differ from the CPU build's {ref}")
+    say(f"tools: bench_build's {len(bb['bits_sha'])} builds on the card equal the CPU build of the same genome "
+        f"({time.monotonic() - t0:.1f} s on the CPU)")
+    needed = {"tool_profile_classify": ("K1", "K2"), "tool_bench_toy": ("K1", "K2")}
+    for key, ks in needed.items():
+        check(all(launches[key][k] > 0 for k in ks), f"tools: {key} launched {launches[key]}")
+    out["launches"] = launches
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -1657,8 +1630,9 @@ def main(argv: list[str]) -> int:
     t_all = time.monotonic()
 
     t0 = time.monotonic()
-    card = card_line()
-    say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    card_text = card(dev)
+    check("power limit not read" not in card_text, f"nvidia-smi did not read the card: {card_text}")
+    say(f"card: {card_text}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
         f"({time.monotonic() - t0:.2f} s)")
 
@@ -1675,11 +1649,11 @@ def main(argv: list[str]) -> int:
         f"({stack.bits.numel() * 4 / 1e6:.0f} MB on the card): {time.monotonic() - t0:.2f} s")
 
     t0 = time.monotonic()
-    seqs = bench_reads(genomes)
+    seqs = bench_reads(genomes, N_READS, READ_LEN)
     say(f"reads: bench.py's {len(seqs)} reads of {READ_LEN} bp: {time.monotonic() - t0:.2f} s")
 
     t0 = time.monotonic()
-    workload = live_workload(genomes)
+    workload = live_workload(genomes, LIVE_READS, LIVE_READ_LEN)
     live_seqs = [seq for _, _, seq, _ in workload]
     say(f"live reads: bench_live's {len(workload)} reads of {LIVE_READ_LEN} bp: {time.monotonic() - t0:.2f} s")
 
@@ -1703,7 +1677,7 @@ def main(argv: list[str]) -> int:
             "k5": {exp: {k: k5[exp][k] for k in keys + ("odd", "distinct", "kernels_per_call")}
                    for exp in ("cuda_block", "cuda_row")},
         }), flush=True)
-        print(card_line(), flush=True)
+        print(card_text, flush=True)
         return 0
 
     t0 = time.monotonic()
@@ -1712,7 +1686,7 @@ def main(argv: list[str]) -> int:
     if argv == ["--k2-only"]:
         keys = ("shape", "ms", "launch_ms", "call_ms", "max_abs_err")
         print(json.dumps({"k2": {lab: {k: kern[("K2", lab)][k] for k in keys} for lab in "ABL"}}), flush=True)
-        print(card_line(), flush=True)
+        print(card_text, flush=True)
         return 0
 
     t0 = time.monotonic()
@@ -1720,7 +1694,7 @@ def main(argv: list[str]) -> int:
     say(f"counts phase: {time.monotonic() - t0:.2f} s")
 
     t0 = time.monotonic()
-    classified, best, launches, dt = phase_main(engine, filters, seqs)
+    classified, best, attempts, launches, main_line = phase_main(dev, engine, filters, seqs)
     say(f"main phase: {time.monotonic() - t0:.2f} s")
 
     t0 = time.monotonic()
@@ -1791,11 +1765,15 @@ def main(argv: list[str]) -> int:
     k5 = phase_gather(dev)
     say(f"gather phase: {time.monotonic() - t0:.2f} s")
 
+    t0 = time.monotonic()
+    tools = phase_tools(dev, filters, seqs, classified, best, attempts)
+    say(f"tools phase: {time.monotonic() - t0:.2f} s")
+
     paths_launched = {"classify": launches, "live_synth48": live["synth48"]["launches"],
                       "live_oracle": live["oracle"]["launches"],
                       **{f"sharded_{m}": sharded[m]["launches"] for m in SHARD_MESHES},
                       f"live_synth48_sharded_{LIVE_MESH}": live["sharded"]["launches"],
-                      "remote_server": remote["launches"]}
+                      "remote_server": remote["launches"], **tools["launches"]}
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     rows = []
     for k, name, where in (
@@ -1856,10 +1834,10 @@ def main(argv: list[str]) -> int:
     say(f"build: {json.dumps(built)}")
     live_line = {c: {k: v for k, v in d.items() if k != "launches"} for c, d in live.items() if c != "sharded"}
     say(f"live: {json.dumps(live_line)}")
-    say(f"total: {time.monotonic() - t_all:.1f} s; main path {len(seqs) / dt:.0f} reads/s; live p50 "
+    say(f"total: {time.monotonic() - t_all:.1f} s; main path {main_line['value']} reads/s; live p50 "
         f"{live['synth48']['p50_ms']:.2f} ms per tick (synth48)")
     print(json.dumps({"kernels": rows}), flush=True)
-    print(card_line(), flush=True)
+    print(card_text, flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

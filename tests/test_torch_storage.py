@@ -1,7 +1,8 @@
 """Filter state across the two packages: ``ibf_from_numpy`` and the .ribf
 loader and writer, each held equal to the JAX package's IBFData; and the
 tracked bench filters and genomes, read with the port's loaders, against
-the sha256 constants chip_smoke.py checks on the card."""
+the sha256 constants chip_smoke.py checks on the card (through
+tools/bench.py::bench_filters, whose constants they are)."""
 
 import hashlib
 from pathlib import Path
@@ -16,6 +17,7 @@ from readbouncer_tpu.ibf.storage import IBFData as JaxIBFData
 from readbouncer_tpu_torch.errors import FilterFileError, FilterSchemeError
 from readbouncer_tpu_torch.fastio.fasta import read_records
 from readbouncer_tpu_torch.ibf.storage import IBFData, ibf_from_numpy, sniff
+from readbouncer_tpu_torch.tools import bench as bench_tool
 from test_torch_build import _assert_same_filter, refs  # noqa: F401  (module fixture)
 
 torch.set_num_threads(1)
@@ -59,7 +61,8 @@ def test_tracked_bench_state_matches_chip_smoke(i):
     """chip_smoke.py cannot take the tracked filters to the card (they
     exceed what a copy for the card may hold): it regenerates bench.py's
     genome i, builds its filter there and checks both against sha256
-    constants.  Those constants are the tracked files' own."""
+    constants (tools/bench.py's).  Those constants are the tracked files'
+    own."""
     name = chip_smoke.bench_name(i)
     ibf = IBFData.load(BENCH / f"{name}.ribf")
     assert hashlib.sha256(ibf.bits.tobytes()).hexdigest() == chip_smoke.BITS_SHA[i]
@@ -68,5 +71,5 @@ def test_tracked_bench_state_matches_chip_smoke(i):
     )
     (rec,) = read_records(BENCH / f"{name}.fasta")
     genome = rec.seq.encode("ascii")
-    assert hashlib.sha256(genome).hexdigest() == chip_smoke.GENOME_SHA[i]
-    assert chip_smoke.bench_genome(i).tobytes() == genome
+    assert hashlib.sha256(genome).hexdigest() == bench_tool.GENOME_SHA[i]
+    assert bench_tool.bench_genome(i).tobytes() == genome
