@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-only
     python3 chip_smoke.py --k4-k5-only
+    python3 chip_smoke.py --probes-only
 
 Drives the port's paths at full width and holds every kernel against
 its plain version:
@@ -24,7 +25,10 @@ its plain version:
   through the remote basecaller, and the CTC trainer;
 * the five measurement tools (readbouncer_tpu_torch/tools/bench.py,
   bench_live.py, bench_build.py, bench_toy.py, profile_classify.py),
-  whose workload helpers this script imports.
+  whose workload helpers this script imports;
+* the four research probes (tools/proto_counts_layout.py,
+  dedup_probe.py, gather_probe.py, transfer_probe.py) and the port's
+  graft-entry contract (readbouncer_tpu_torch/graft_entry.py).
 
 Phases:
 
@@ -134,7 +138,19 @@ Phases:
             run of the plain versions decides them, read by read) and
             tools.bench_build (three builds of a 51.2 Mb genome on the
             card, the bits of all three equal to one build of the same
-            genome on the CPU).
+            genome on the CPU);
+16. probes — tools.proto_counts_layout at its full constants (R=8192,
+            L=250, W=8, 1,236,269 rows): ripple, tree, flat, flatg and k1
+            (``counts`` through K1) all equal, K1 launched, times beside
+            K1's byte bound at that shape; tools.dedup_probe invgather and
+            counts --dup 0.5, the dedup sums equal to the baseline's;
+            every tools.gather_probe experiment at its defaults
+            (gprod_nobar is gprod's program, run once untimed);
+            tools.transfer_probe once; graft_entry.entry() on the card
+            (logits [8, 128, 5], K3 launched, within the K3 logits gate
+            of the plain forward on seeded frames) and
+            graft_entry.dryrun_steps(4) (K1 and K2 launched, the loss
+            finite).
 
 Prints one line per phase with its seconds, the tools' JSON lines, a
 JSON line with the kernels' numbers, the card line, and last
@@ -145,8 +161,10 @@ as one JSON line, then the card line.  ``--k4-k5-only`` runs phases 1-3,
 K4's counts phase and K5's part of the gather phase, and prints as one
 JSON line K4's and K5's times, the profiler's device time per kernel of
 one call, and K4's SASS (instructions in its window loop per word loaded,
-from cuobjdump, and registers per thread), then the card line.  Both
-modes call only wrapper functions that earlier trees also have, so a copy
+from cuobjdump, and registers per thread), then the card line.
+``--probes-only`` runs phases 1-2 and 16 and prints the probes' numbers
+as one JSON line, then the card line.  The first two modes call only
+wrapper functions that earlier trees also have, so a copy
 of this file placed at the root of another checkout of the repo times
 that checkout's kernels on the same inputs the same way: how two versions
 of a kernel are compared in one run.
@@ -173,6 +191,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from readbouncer_tpu_torch import graft_entry
 from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch
 from readbouncer_tpu_torch.classify.fused import LiveFused, stack_dual_max
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
@@ -200,7 +219,10 @@ from readbouncer_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
 from readbouncer_tpu_torch.parallel.sharded import ShardedFilterStack, ShardedLiveClassifier
 from readbouncer_tpu_torch.stream.replay import ReplayRead, ReplaySource, sequence_to_signal
 from readbouncer_tpu_torch.stream.scheduler import AdaptiveSampler, LiveClassifier, LiveConfig
-from readbouncer_tpu_torch.tools import bench_build, bench_toy, dma_gather_probe, profile_classify, train_basecaller
+from readbouncer_tpu_torch.tools import (
+    bench_build, bench_toy, dedup_probe, dma_gather_probe, gather_probe, profile_classify, proto_counts_layout,
+    train_basecaller, transfer_probe,
+)
 from readbouncer_tpu_torch.tools._bench_util import card
 from readbouncer_tpu_torch.tools.bench import BATCH_SIZE as BATCH
 from readbouncer_tpu_torch.tools.bench import (
@@ -246,6 +268,9 @@ TRAIN_STEPS = 20
 TRAIN_LR = 2e-3
 PROFILE_READS = 16_384  # scripts/profile_classify.py's default
 TOY_CPU_READS = 2_048  # bench_toy's reads decided again on the CPU
+K3_LOGITS_GATE = 1e-4  # the kernel forward's logits, max abs from the plain forward's
+PROTO_REPS = 3  # scripts/proto_counts_layout.py's timed calls per variant
+GRAFT_DRYRUN_DEVICES = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -991,7 +1016,7 @@ def phase_gru(dev, workload) -> dict:
         f"forward; {len(diff)} argmax tokens differ; against the float64 forward: kernel {kerr64:.2e}, "
         f"plain {perr64:.2e}"
     )
-    check(lerr <= 1e-4, f"forward: max abs error {lerr:.3g} on logits > 1e-4")
+    check(lerr <= K3_LOGITS_GATE, f"forward: max abs error {lerr:.3g} on logits > {K3_LOGITS_GATE}")
     check(bool((gaps < 1e-4).all()), f"forward: {len(diff)} tokens differ, top-2 gaps {gaps.tolist()[:8]}")
     before = gru_ops.gru_layer.launches
     caller.basecall(chunks)
@@ -1616,9 +1641,113 @@ def phase_tools(dev, filters, seqs: list[str], classified, best, attempts) -> di
     return out
 
 
+def phase_probes(dev) -> dict:
+    """The four probe tools and the graft-entry contract on the card: each
+    tool's JSON line printed; the launches of proto_counts_layout, of the
+    contract's forward and of its dryrun counted from 0 over their calls."""
+    t_phase = time.monotonic()
+    out, launches = {}, {}
+    P = proto_counts_layout
+
+    _reset_counters()
+    t0 = time.monotonic()
+    proto = P.run_proto_counts_layout(dev, P.R, P.L, P.W, P.ROWS, reps=PROTO_REPS)
+    launches["tool_proto_counts_layout"] = _counters()
+    print(json.dumps(proto["line"]), flush=True)
+    check(set(proto["matches"]) == set(P.VARIANTS[1:]) and all(proto["matches"].values()),
+          f"proto_counts_layout: a layout differs from {P.VARIANTS[0]}: {proto['matches']}")
+    k1_runs = launches["tool_proto_counts_layout"]["K1"]
+    check(k1_runs == PROTO_REPS + 1, f"proto_counts_layout: K1 launched {k1_runs} times, not {PROTO_REPS + 1}")
+    # K1's least bytes at this shape (anded words in, planes out), as in
+    # phase_kernels, and the whole counts function's (reads, lengths and
+    # the filter's bits in, counts out)
+    n = P.L - P.K + 1
+    R2, planes = 2 * P.R, max(n.bit_length(), 1)
+    k1_bound, k1_by = _bound(R2 * n * P.W * 4 + R2 * planes * P.W * 4, R2 * n * P.W * 2)
+    counts_bound, _ = _bound(P.R * P.L + P.R * 4 + P.ROWS * P.W * 4 + R2 * P.W * 32 * 4, 0)
+    out["proto_counts_layout"] = {
+        "ms": {name: d["ms"] for name, d in proto["variants"].items()},
+        "first_s": {name: d["first_s"] for name, d in proto["variants"].items()},
+        "k1_bound_ms": k1_bound, "k1_bound_by": k1_by, "counts_bound_ms": counts_bound,
+        "seconds": time.monotonic() - t0,
+    }
+    say(f"probes: proto_counts_layout all {len(P.VARIANTS)} layouts equal, K1 launched {k1_runs}; K1's bound at "
+        f"[{R2}, {n}, {P.W}] {k1_bound:.4f} ms ({k1_by}), the counts function's {counts_bound:.4f} ms (bytes); "
+        f"{out['proto_counts_layout']['seconds']:.2f} s")
+
+    t0 = time.monotonic()
+    inv = dedup_probe.run_dedup_probe("invgather", dev)
+    print(json.dumps(inv["line"]), flush=True)
+    cnt = dedup_probe.run_dedup_probe("counts", dev, dup=0.5)
+    print(json.dumps(cnt["line"]), flush=True)
+    check(cnt["line"]["sums_equal"], "dedup_probe: the dedup sums differ from the baseline's")
+    out["dedup_probe"] = {"invgather": inv["line"], "counts": cnt["line"], "seconds": time.monotonic() - t0}
+
+    t0 = time.monotonic()
+    exps = {}
+    for exp in gather_probe.EXPERIMENTS:
+        res = gather_probe.run_gather_probe(exp, dev)
+        if exp == "gprod_nobar":  # gprod's program, run once untimed
+            check(res["line"]["same_as"] == "gprod", f"gather_probe {exp}: {res['line']}")
+        else:
+            check(math.isfinite(res["ms"]) and res["ms"] > 0, f"gather_probe {exp}: {res['ms']} ms")
+        exps[exp] = {k: res[k] for k in ("ms", "rate", "unit")}
+    torch.cuda.empty_cache()
+    out["gather_probe"] = {"experiments": exps, "seconds": time.monotonic() - t0}
+    print(json.dumps({"metric": "gather_probe_ms", "experiments": exps, "device": card(dev)}), flush=True)
+    check(set(exps) == set(gather_probe.EXPERIMENTS), "gather_probe: an experiment did not run")
+
+    t0 = time.monotonic()
+    tr = transfer_probe.run_transfer_probe(dev, transfer_probe.H2D_SIZES, transfer_probe.D2H_SIZES)
+    print(json.dumps(tr["line"]), flush=True)
+    out["transfer_probe"] = {**tr["line"], "seconds": time.monotonic() - t0}
+
+    t0 = time.monotonic()
+    _reset_counters()
+    fn, (frames,) = graft_entry.entry()
+    zeros_out = fn(frames)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 128, 66), dtype=np.float32)).to(dev)
+    got = fn(x)
+    launches["graft_entry"] = _counters()
+    with torch.no_grad():
+        plain = gru_logits(fn.args[0], x, kernel=False)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    check(tuple(zeros_out.shape) == tuple(got.shape) == (8, 128, 5) and bool(torch.isfinite(got).all()),
+          f"graft_entry: logits of shape {tuple(got.shape)}")
+    check(launches["graft_entry"]["K3"] == 8, f"graft_entry: K3 launched {launches['graft_entry']['K3']}, not 2 x 4 layers")
+    check(err <= K3_LOGITS_GATE, f"graft_entry: logits {err:.3g} from the plain forward > {K3_LOGITS_GATE}")
+    out["graft_entry"] = {"logits_max_abs_err": err, "seconds": time.monotonic() - t0}
+
+    t0 = time.monotonic()
+    # the dryrun seeds its net on the card; the CPU's reference run takes
+    # the same values (a CPU generator draws others)
+    cpu_params = param_tree(host_params(init_gru_params(torch.Generator(device=dev).manual_seed(0))), "cpu")
+    _reset_counters()
+    d = graft_entry.dryrun_steps(GRAFT_DRYRUN_DEVICES)
+    launches["graft_dryrun"] = _counters()
+    ref = graft_entry.dryrun_steps(GRAFT_DRYRUN_DEVICES, "cpu", params=cpu_params)
+    rel = abs(d["loss"] - ref["loss"]) / abs(ref["loss"])
+    check(launches["graft_dryrun"]["K1"] > 0 and launches["graft_dryrun"]["K2"] > 0,
+          f"graft dryrun: launches {launches['graft_dryrun']}")
+    check(math.isfinite(d["loss"]), f"graft dryrun: loss {d['loss']}")
+    check(torch.equal(d["mb"].cpu(), ref["mb"]) and torch.equal(d["mr"].cpu(), ref["mr"])
+          and np.array_equal(d["decisions"], ref["decisions"]),
+          "graft dryrun: the card's maxima or decisions differ from the CPU's")
+    check(rel <= 1e-4, f"graft dryrun: loss {d['loss']} on the card vs {ref['loss']} on the CPU")
+    out["graft_dryrun"] = {"mesh": d["mesh"], "loss": d["loss"], "cpu_loss": ref["loss"], "loss_rel": rel,
+                           "seconds": time.monotonic() - t0}
+    say(f"probes: graft_entry logits {err:.2e} from the plain forward, launches {launches['graft_entry']}; "
+        f"dryrun on {d['mesh']} loss {d['loss']:.6f} (CPU {ref['loss']:.6f}), launches {launches['graft_dryrun']}")
+    out["seconds"] = time.monotonic() - t_phase
+    out["launches"] = launches
+    say(f"probes phase: {out['seconds']:.2f} s")
+    return out
+
+
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--k2-only"], ["--k4-k5-only"]):
-        print("usage: python3 chip_smoke.py [--k2-only | --k4-k5-only]", file=sys.stderr)
+    if argv not in ([], ["--k2-only"], ["--k4-k5-only"], ["--probes-only"]):
+        print("usage: python3 chip_smoke.py [--k2-only | --k4-k5-only | --probes-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1639,6 +1768,12 @@ def main(argv: list[str]) -> int:
     t0 = time.monotonic()
     phase_build()
     say(f"build phase: {time.monotonic() - t0:.2f} s")
+
+    if argv == ["--probes-only"]:
+        probes = phase_probes(dev)
+        print(json.dumps({k: v for k, v in probes.items() if k != "launches"}), flush=True)
+        print(card_text, flush=True)
+        return 0
 
     t0 = time.monotonic()
     filters, genomes = phase_state(dev)
@@ -1769,11 +1904,14 @@ def main(argv: list[str]) -> int:
     tools = phase_tools(dev, filters, seqs, classified, best, attempts)
     say(f"tools phase: {time.monotonic() - t0:.2f} s")
 
+    probes = phase_probes(dev)
+    say("probes: " + json.dumps({k: v for k, v in probes.items() if k != "launches"}))
+
     paths_launched = {"classify": launches, "live_synth48": live["synth48"]["launches"],
                       "live_oracle": live["oracle"]["launches"],
                       **{f"sharded_{m}": sharded[m]["launches"] for m in SHARD_MESHES},
                       f"live_synth48_sharded_{LIVE_MESH}": live["sharded"]["launches"],
-                      "remote_server": remote["launches"], **tools["launches"]}
+                      "remote_server": remote["launches"], **tools["launches"], **probes["launches"]}
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     rows = []
     for k, name, where in (

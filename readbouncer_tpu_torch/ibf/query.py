@@ -12,6 +12,10 @@ threshold:
                     -> bit-plane counters [2R, P, W]     (kernel K1)
                     -> counts [R, 2, B] or per-filter maxima (kernel K2)
 
+``counts`` also keeps the JAX package's two XLA accumulation routes
+(``accum="ripple"`` and ``"tree"``, over chunks of ``WINDOW_CHUNK``
+windows), which ``tools/proto_counts_layout.py`` times against K1.
+
 u32 values are held in int64 tensors (torch's uint32 lacks shifts and
 comparisons on both CPU and CUDA); every product of two u32 values is
 split into 16-bit limbs so no int64 product passes 2^63, and results are
@@ -47,12 +51,16 @@ __all__ = [
     "FilterStack",
     "anded_windows",
     "counts_planes",
+    "add_planes",
     "counts",
     "max_counts",
 ]
 
 _M16 = 0xFFFF
 _M32 = 0xFFFFFFFF
+
+ACCUMS = ("k1", "ripple", "tree")  # counts' accumulation routes
+WINDOW_CHUNK = 128  # windows per step of the ripple and tree routes
 
 
 def umulhi_u32(a: torch.Tensor, b: torch.Tensor | int) -> torch.Tensor:
@@ -249,16 +257,21 @@ def anded_windows(
     h hashes; windows at or past ``lengths - k + 1`` are zeroed (windows
     holding N are counted, as the reference counts them).
     """
-    R, L = reads.shape
+    n_valid = torch.clamp(lengths.to(torch.int64) - (k - 1), min=0)
+    return _gather_and(bits, kmer_codes(reads, k), n_valid, 0, h=h, rows=rows, scheme=scheme)
+
+
+def _gather_and(bits, codes, n_valid, start: int, *, h: int, rows: int, scheme: str) -> torch.Tensor:
+    """Membership words int32 [R, 2, m, W] of the windows ``start ..
+    start+m`` whose codes are ``codes`` [R, 2, m]: the h row gathers ANDed,
+    windows at or past ``n_valid`` [R] zeroed."""
+    R, _, m = codes.shape
     W = bits.shape[-1]
-    n = L - k + 1
-    codes = kmer_codes(reads, k)  # [R, 2, n]
     anded = None
     for ridx in hash_rows_all(codes, h, rows, scheme):
-        g = bits.index_select(0, ridx.reshape(-1)).reshape(R, 2, n, W)
+        g = bits.index_select(0, ridx.reshape(-1)).reshape(R, 2, m, W)
         anded = g if anded is None else anded.bitwise_and_(g)
-    n_valid = torch.clamp(lengths.to(torch.int64) - (k - 1), min=0)
-    valid = torch.arange(n, device=reads.device)[None, :] < n_valid[:, None]
+    valid = (start + torch.arange(m, device=codes.device))[None, :] < n_valid[:, None]
     return anded.masked_fill_(~valid[:, None, :, None], 0)
 
 
@@ -282,6 +295,76 @@ def counts_planes(
     return accumulate_planes(anded.reshape(2 * R, n, W), max(int(n).bit_length(), 1))
 
 
+def add_planes(a: list, b: list) -> list:
+    """Add two bit-plane numbers (lists of int32 word tensors, least
+    significant plane first): plane i of the result is bit i of the per-lane
+    sum, one full adder per plane.  Counterpart of the JAX package's
+    ``_add_planes``."""
+    out = []
+    carry = None
+    for j in range(max(len(a), len(b))):
+        terms = [t for t in (a[j] if j < len(a) else None, b[j] if j < len(b) else None, carry) if t is not None]
+        if len(terms) == 3:
+            x, y, z = terms
+            out.append(x ^ y ^ z)
+            carry = (x & y) | (z & (x ^ y))
+        elif len(terms) == 2:
+            x, y = terms
+            out.append(x ^ y)
+            carry = x & y
+        else:
+            out.append(terms[0])
+            carry = None
+    if carry is not None:
+        out.append(carry)
+    return out
+
+
+def tree_sum_planes(planes: list) -> list:
+    """Planes [R, 2, m, W] (m a power of two) summed over their axis 2 by a
+    carry-save adder tree (log2(m) levels of ``add_planes``, the axis
+    halving at each): planes [R, 2, W], one more per level."""
+    m = planes[0].shape[2]
+    while m > 1:
+        m //= 2
+        planes = add_planes([p[:, :, :m] for p in planes], [p[:, :, m:] for p in planes])
+    return [p[:, :, 0, :] for p in planes]
+
+
+def chunked_codes(reads: torch.Tensor, lengths: torch.Tensor, k: int, chunk: int = WINDOW_CHUNK):
+    """(codes int64 [R, 2, n_pad], n_valid int64 [R], wc): the window codes
+    zero-padded to a multiple of the chunk ``wc`` (a power of two, at most
+    ``chunk``, at least 2) and each read's count of valid windows."""
+    n = reads.shape[1] - k + 1
+    wc = min(chunk, 1 << max(n - 1, 1).bit_length())
+    codes = torch.nn.functional.pad(kmer_codes(reads, k), (0, -(-n // wc) * wc - n))
+    return codes, torch.clamp(lengths.to(torch.int64) - (k - 1), min=0), wc
+
+
+def _counts_chunked(bits, reads, lengths, *, k, h, rows, scheme, accum) -> torch.Tensor:
+    """The ripple and tree routes: windows in chunks of ``wc`` (a power of
+    two, at most WINDOW_CHUNK), each chunk's masked membership words folded
+    into the planes one window at a time (ripple), or summed by a
+    carry-save adder tree over the chunk and added once (tree)."""
+    R, L = reads.shape
+    W = bits.shape[1]
+    n_planes = max(int(L - k + 1).bit_length(), 1)
+    codes, n_valid, wc = chunked_codes(reads, lengths, k)
+    planes = [torch.zeros((R, 2, W), dtype=torch.int32, device=reads.device) for _ in range(n_planes)]
+    for base in range(0, codes.shape[2], wc):
+        anded = _gather_and(bits, codes[:, :, base : base + wc], n_valid, base, h=h, rows=rows, scheme=scheme)
+        if accum == "ripple":
+            for s in range(wc):
+                carry = anded[:, :, s, :]
+                for j in range(n_planes):
+                    planes[j], carry = planes[j] ^ carry, planes[j] & carry
+            continue
+        planes = add_planes(planes, tree_sum_planes([anded]))[:n_planes]
+        planes += [torch.zeros_like(planes[0]) for _ in range(n_planes - len(planes))]
+    # [R, 2, P, W] -> K1's [2R, P, W] layout, then to integers once
+    return expand_planes(torch.stack(planes, dim=2).reshape(2 * R, n_planes, W)).reshape(R, 2, W * 32)
+
+
 def counts(
     bits: torch.Tensor,
     reads: torch.Tensor,
@@ -291,8 +374,19 @@ def counts(
     h: int,
     rows: int,
     scheme: str = "rbt1",
+    accum: str = "k1",
 ) -> torch.Tensor:
-    """Per-bin window-match counts, int32 [R, 2, W*32]."""
+    """Per-bin window-match counts, int32 [R, 2, W*32].
+
+    ``accum`` picks how the windows' membership words are summed: "k1"
+    (the engine's route through kernel K1; the JAX package's "pallas"), or
+    the JAX package's XLA routes "ripple" and "tree", step for step its
+    ``_counts_impl``.  All three give the same counts.
+    """
+    if accum not in ACCUMS:
+        raise ValueError(f"accum must be one of {ACCUMS}, got {accum!r}")
+    if accum != "k1":
+        return _counts_chunked(bits, reads, lengths, k=k, h=h, rows=rows, scheme=scheme, accum=accum)
     R = reads.shape[0]
     planes = counts_planes(bits, reads, lengths, k=k, h=h, rows=rows, scheme=scheme)
     return expand_planes(planes).reshape(R, 2, -1)
