@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k2-only
     python3 chip_smoke.py --k4-k5-only
     python3 chip_smoke.py --probes-only
+    python3 chip_smoke.py --mesh-only
 
 Drives the port's paths at full width and holds every kernel against
 its plain version:
@@ -23,6 +24,8 @@ its plain version:
 * the bins-sharded classifier and live classifier over meshes of the one
   card named several times, a two-process classify, the live loop
   through the remote basecaller, and the CTC trainer;
+* the bins-sharded classifier and live classifier over meshes that span
+  two processes on the card, joined by a gloo group;
 * the five measurement tools (readbouncer_tpu_torch/tools/bench.py,
   bench_live.py, bench_build.py, bench_toy.py, profile_classify.py),
   whose workload helpers this script imports;
@@ -41,7 +44,9 @@ Phases:
             tracked .bench_cache FASTAs), the four filters built on the
             card (bits sha256 equal to the tracked .bench_cache .ribf
             files; when those files are in the checkout they are also
-            loaded and compared), merged into one stack of W=72 words;
+            loaded and compared), saved in tools.bench's cache layout
+            under a temporary directory (phase 17 loads them), merged
+            into one stack of W=72 words;
 4. kernels — K1 (accumulate_planes) and K2 (planes_dual_max) on real
             inputs of that stack at the phase-A and phase-B shapes of
             classify and the short bucket of the live loop, bit-equal to
@@ -59,7 +64,9 @@ Phases:
             line printed): exactly 20,493 of 40,960 reads classified in
             every run, every run deciding as the warm-up, both kernel
             counters > 0 over the timed runs, 256 reads' decisions equal
-            to the numpy oracle;
+            to the numpy oracle, and the first 2,048 reads' decisions,
+            best targets and attempts equal to the chunk-wave oracle's
+            (``ClassifyEngine.classify_sequences_waves``);
    profile — host encode time and one host batch under torch.profiler
             (device busy share, top kernels and the port's own);
             informational;
@@ -150,7 +157,21 @@ Phases:
             (logits [8, 128, 5], K3 launched, within the K3 logits gate
             of the plain forward on seeded frames) and
             graft_entry.dryrun_steps(4) (K1 and K2 launched, the loss
-            finite).
+            finite);
+17. mesh across processes — two processes of this script
+            (``--mesh-rank``) on the card, joined by a gloo group on a free
+            local port, each naming cuda:0 (once for bins:2, twice for
+            data:2,bins:2); each loads phase 3's filters from its cache
+            (nothing rebuilt), draws bench's reads and bench_live's
+            workload from the seeds and copies to the card only the word
+            blocks of its cells.  On bins:2, then data:2,bins:2, the
+            maxima of phase 10's batches are bit-equal to the unsharded
+            stack's in both ranks, K1 and K2 launched once per owned cell
+            and batch in each, one max all-reduce per call (timed apart
+            from the card's work); then the live loop of phase 8 (synth48)
+            with ShardedLiveClassifier over the cross-process bins:2 mesh:
+            1,024 / 1,024 in each rank.  Prints each rank's resident bits
+            and ms per max_counts_dual call.
 
 Prints one line per phase with its seconds, the tools' JSON lines, a
 JSON line with the kernels' numbers, the card line, and last
@@ -163,7 +184,8 @@ JSON line K4's and K5's times, the profiler's device time per kernel of
 one call, and K4's SASS (instructions in its window loop per word loaded,
 from cuobjdump, and registers per thread), then the card line.
 ``--probes-only`` runs phases 1-2 and 16 and prints the probes' numbers
-as one JSON line, then the card line.  The first two modes call only
+as one JSON line, then the card line.  ``--mesh-only`` runs phases 1-3
+and 17 and prints phase 17's numbers, then the card line.  The first two modes call only
 wrapper functions that earlier trees also have, so a copy
 of this file placed at the root of another checkout of the repo times
 that checkout's kernels on the same inputs the same way: how two versions
@@ -186,6 +208,7 @@ import tempfile
 import threading
 import time
 from contextlib import nullcontext
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -193,14 +216,14 @@ import torch
 
 from readbouncer_tpu_torch import graft_entry
 from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch
-from readbouncer_tpu_torch.classify.fused import LiveFused, stack_dual_max
+from readbouncer_tpu_torch.classify.fused import LiveFused, plan_stacks, stack_dual_max, threshold_table
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.classify.policy import classify_decisions
 from readbouncer_tpu_torch.config import ConfigReader
 from readbouncer_tpu_torch.ibf.build import build_ibf
 from readbouncer_tpu_torch.ibf.hashing import encode_bases
 from readbouncer_tpu_torch.ibf.params import IBFParams
-from readbouncer_tpu_torch.ibf.query import anded_windows, counts
+from readbouncer_tpu_torch.ibf.query import FilterStack, anded_windows, counts
 from readbouncer_tpu_torch.ibf.query_np import counts_np
 from readbouncer_tpu_torch.ibf.storage import IBFData
 from readbouncer_tpu_torch.main import live_config, make_basecaller, make_replay_source
@@ -215,7 +238,9 @@ from readbouncer_tpu_torch.ops import gather
 from readbouncer_tpu_torch.ops import gru as gru_ops
 from readbouncer_tpu_torch.ops import ibf_count
 from readbouncer_tpu_torch.ops._build import load_all, load_library
-from readbouncer_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
+from readbouncer_tpu_torch.parallel import distributed
+from readbouncer_tpu_torch.parallel import sharded as sharded_module
+from readbouncer_tpu_torch.parallel.mesh import Mesh, make_mesh, parse_mesh_shape
 from readbouncer_tpu_torch.parallel.sharded import ShardedFilterStack, ShardedLiveClassifier
 from readbouncer_tpu_torch.stream.replay import ReplayRead, ReplaySource, sequence_to_signal
 from readbouncer_tpu_torch.stream.scheduler import AdaptiveSampler, LiveClassifier, LiveConfig
@@ -251,6 +276,7 @@ CLI_LIVE_READS = 64
 # kernels' least work is far below it, so their bound is the bytes
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # scripts/profile_realistic.py's batch: 2,048 reads of one 250 bp chunk
+# (the engine's chunk_length, also phase A's chunk in phases 10 and 17)
 COUNTS_READS = 2_048
 COUNTS_CHUNK = 250
 # scripts/dma_gather_probe.py's defaults
@@ -260,6 +286,12 @@ GATHER_NBUF = 8
 SHARD_MESHES = ("bins:2", "data:2,bins:2")  # over cuda:0 repeated
 LIVE_MESH = "data:2,bins:2"
 MP_PROCESSES = 2
+# phase 17: meshes across MP_PROCESSES processes, each naming cuda:0 once
+# (bins:2) or twice (data:2,bins:2); the live loop over the first
+CROSS_MESHES = ("bins:2", "data:2,bins:2")
+MESH_GROUP_TIMEOUT = timedelta(seconds=120)  # each collective's limit in the workers
+MESH_PHASE_TIMEOUT_S = 420
+WAVES_READS = 2_048
 REMOTE_READS = LIVE_READS
 REMOTE_CHANNELS = LIVE_CHANNELS
 TRAIN_BATCH = 64  # scripts/train_basecaller.py's defaults
@@ -300,12 +332,13 @@ def phase_build() -> None:
                 say(f"    {line.strip()}")
 
 
-def phase_state(dev) -> tuple[list[IBFData], list[np.ndarray]]:
+def phase_state(dev, cache: Path) -> tuple[list[IBFData], list[np.ndarray]]:
     """bench.py's genomes and filters, built on the card by tools/bench.py
     (which holds each genome and each filter's bits to the tracked
-    .bench_cache hashes); where the tracked .ribf files are in the
+    .bench_cache hashes) and saved under ``cache`` (an empty directory) in
+    tools.bench's layout; where the tracked .ribf files are in the
     checkout, each filter is also held equal to its file."""
-    filters, genomes = bench_filters(dev, cache=None)
+    filters, genomes = bench_filters(dev, cache=cache)
     for i, ibf in enumerate(filters):
         name = bench_name(i)
         check(ibf.num_bins == BINS_PER_FILTER, f"{name}: {ibf.num_bins} bins")
@@ -682,6 +715,13 @@ def phase_main(dev, engine: ClassifyEngine, filters, seqs: list[str]):
         got = (bool(classified[i]), int(best[i]), int(attempts[i]))
         check(want == got, f"read {i}: engine {got} vs numpy oracle {want}")
     say(f"  {ORACLE_READS} reads' decisions equal the numpy oracle ({time.monotonic() - t1:.1f} s)")
+    t1 = time.monotonic()
+    waves = engine.classify_sequences_waves(seqs[:WAVES_READS])
+    for name, got, want in zip(("classified", "best", "attempts"), waves, (classified, best, attempts)):
+        check(np.array_equal(got, want[:WAVES_READS]), f"chunk-wave oracle: {name} differs on the first "
+              f"{WAVES_READS} reads")
+    say(f"  chunk-wave oracle (classify_sequences_waves) on the first {WAVES_READS} reads: classified, best "
+        f"and attempts equal ({int(waves[0].sum())} classified, {time.monotonic() - t1:.1f} s)")
     return classified, best, attempts, launches, line
 
 
@@ -1074,15 +1114,15 @@ def profile_live_tick(basecaller, classifier, workload) -> None:
         say(f"    {ms:8.3f} ms {count:5d}x {key[:100]}")
 
 
-def sharded_live_run(dev, filters, workload, basecaller, mesh: str):
-    """run_bench_live's loop with ShardedLiveClassifier over ``mesh`` of
-    cuda:0 repeated: the same warm-ups, counters reset before the first
-    tick.  Returns (stats, replayed reads, warm-up s, first tick s, wall s)."""
+def sharded_live_run(dev, filters, workload, basecaller, mesh: Mesh):
+    """run_bench_live's loop with ShardedLiveClassifier over ``mesh``: the
+    same warm-ups, counters reset before the first tick.  Returns (stats,
+    replayed reads, warm-up s, first tick s, wall s)."""
     src = ReplaySource(
         reads=[ReplayRead(rid, sig, seq) for rid, sig, seq, _ in workload], channels=LIVE_CHANNELS
     )
     cfg = LiveConfig(batch_size=LIVE_BATCH, profile_ticks=True)
-    classifier = ShardedLiveClassifier(filters[:3], filters[3:], cfg, _mesh(mesh, dev))
+    classifier = ShardedLiveClassifier(filters[:3], filters[3:], cfg, mesh)
     with tempfile.TemporaryDirectory() as td:
         sampler = AdaptiveSampler(src, basecaller, classifier, output_dir=td, cfg=cfg)
         t0 = time.monotonic()
@@ -1104,18 +1144,19 @@ def sharded_live_run(dev, filters, workload, basecaller, mesh: str):
     return stats, src.reads, warm, first, wall
 
 
-def phase_live(dev, filters, workload, caller_name: str, mesh: str = "") -> dict:
+def phase_live(dev, filters, workload, caller_name: str, mesh: Mesh | None = None) -> dict:
     """The live loop on bench_live's workload: tools.bench_live's run or,
     with ``mesh``, sharded_live_run; the counters read from the first tick
     on.  Checks every read's action by its origin and that the path's
-    kernels launched."""
+    kernels launched (over a mesh, K1 and K2 once per owned cell and
+    batch)."""
     origin = {rid: g for rid, _, _, g in workload}
     gru = caller_name == "synth48"
     basecaller = make_caller(caller_name, LIVE_FRAMES, dev)
-    if mesh:
+    if mesh is not None:
         stats, reads, warm, first, wall = sharded_live_run(dev, filters, workload, basecaller, mesh)
         launches = _counters()
-        caller_name = f"{caller_name}, mesh {mesh}"
+        caller_name = f"{caller_name}, mesh {','.join(f'{a}:{n}' for a, n in mesh.shape.items())}"
     else:
         out = run_bench_live(filters[:3], filters[3:], workload, basecaller, dev, LIVE_CHANNELS, LIVE_BATCH,
                              before_timed=_reset_counters)
@@ -1153,8 +1194,8 @@ def phase_live(dev, filters, workload, caller_name: str, mesh: str = "") -> dict
           f"live {caller_name}: unclassified {stats.unclassified}, failed {stats.actions_failed}")
     needed = ("K1", "K2", "K3") if gru else ("K1", "K2")
     check(all(launches[k] > 0 for k in needed), f"live {caller_name}: kernel counters {launches}")
-    if mesh:
-        cells = math.prod(parse_mesh_shape(mesh).values())
+    if mesh is not None:
+        cells = int((mesh.ranks == distributed.process_index()).sum())
         check(launches["K1"] == launches["K2"] and launches["K1"] % cells == 0,
               f"live {caller_name}: K1 and K2 not launched once per cell and batch: {launches}")
     return d
@@ -1330,31 +1371,48 @@ def _mesh(shape: str, dev):
     return make_mesh(shape, [dev] * math.prod(parse_mesh_shape(shape).values()))
 
 
+def phase_a_batches(seqs: list[str], dev) -> tuple[list, list]:
+    """Chunk 0 of every read (classify's phase A) in batches of BATCH on
+    ``dev``: the engine's threshold tables (base, retry) and per batch
+    (reads, lengths, base thresholds, retry thresholds)."""
+    cl = COUNTS_CHUNK
+    tabs = [torch.from_numpy(threshold_table(cl, 13, rate, 0.95).astype(np.int32)).to(dev)
+            for rate in (ERROR_RATE, ERROR_RATE - 0.02)]
+    batches = []
+    for s0 in range(0, len(seqs), BATCH):
+        enc, lens = encode_batch([q[:cl] for q in seqs[s0 : s0 + BATCH]], cl)
+        r, l = torch.from_numpy(enc).to(dev), torch.from_numpy(lens.astype(np.int64)).to(dev)
+        batches.append((r, l, tabs[0].index_select(0, l), tabs[1].index_select(0, l)))
+    return tabs, batches
+
+
+def unsharded_maxima(engine: ClassifyEngine, seqs: list[str]) -> tuple[list, list, float]:
+    """Phase A's batches and their per-filter maxima (mb, mr) on the
+    merged stack, and the ms per batch."""
+    tabs, batches = phase_a_batches(seqs, engine.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [stack_dual_max(engine._plan[0], r, l, *tabs) for r, l, _, _ in batches]
+    torch.cuda.synchronize()
+    return batches, want, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
 def phase_sharded(engine: ClassifyEngine, seqs: list[str]) -> dict:
     """ShardedFilterStack over cuda:0 repeated (bins:2, data:2,bins:2) on
     chunk 0 of every read (classify's phase A) in batches of 1,024:
     maxima bit-equal to the unsharded stack_dual_max, K1 and K2 launched
     once per cell and batch."""
     stack, _ = engine._plan
-    dev, cl = engine.device, engine.chunk_length
-    tabs = engine._classifier(1, 0).tabs
-    batches = []
-    for s0 in range(0, len(seqs), BATCH):
-        enc, lens = encode_batch([q[:cl] for q in seqs[s0 : s0 + BATCH]], cl)
-        batches.append((torch.from_numpy(enc).to(dev), torch.from_numpy(lens.astype(np.int64)).to(dev)))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = [stack_dual_max(stack, r, l, tabs["tb"], tabs["tr"]) for r, l in batches]
-    torch.cuda.synchronize()
-    out = {"batches": len(batches), "unsharded_ms_per_batch": (time.perf_counter() - t0) * 1e3 / len(batches)}
+    dev = engine.device
+    batches, want, unsharded_ms = unsharded_maxima(engine, seqs)
+    out = {"batches": len(batches), "unsharded_ms_per_batch": unsharded_ms}
     for shape in SHARD_MESHES:
         mesh = _mesh(shape, dev)
         sharded = ShardedFilterStack(stack, mesh)
-        thr = [(tabs["tb"].index_select(0, l), tabs["tr"].index_select(0, l)) for _, l in batches]
         torch.cuda.synchronize()
         _reset_counters()
         t0 = time.perf_counter()
-        got = [sharded.max_counts_dual(r, l, *t) for (r, l), t in zip(batches, thr)]
+        got = [sharded.max_counts_dual(*b) for b in batches]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = _counters()
@@ -1436,6 +1494,166 @@ def phase_multiprocess(filter_dir: Path, seqs: list[str], classified, best, filt
         f"{d['classified']}/{d['reads']} in {wall:.2f} s wall; .h0/.h1 FASTAs disjoint, their union the "
         f"single-process run's")
     return d
+
+
+def timed_collective(seconds: list):
+    """``sharded``'s max all-reduce wrapped to append its seconds (after a
+    synchronise, so the card's work of the call is not counted in)."""
+    inner = sharded_module.allreduce_max
+
+    def timed(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(t)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    return timed
+
+
+def mesh_worker(rank: int, port: int, work: Path) -> int:
+    """One rank of phase 17 (``--mesh-rank``): joins the gloo group, loads
+    the bench filters phase 3 saved, draws bench's reads and bench_live's
+    workload from the seeds, runs mesh_rank and prints its RESULT line."""
+    dev = torch.device("cuda", 0)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.TIMEOUT = MESH_GROUP_TIMEOUT
+    t0 = time.monotonic()
+    distributed.init_distributed(f"127.0.0.1:{port}", MP_PROCESSES, rank)
+    filters, genomes = bench_filters(dev, cache=work / "cache")
+    seqs = bench_reads(genomes, N_READS, READ_LEN)
+    workload = live_workload(genomes, LIVE_READS, LIVE_READ_LEN)
+    want = np.load(work / "want.npz")
+    setup_s = time.monotonic() - t0
+    out = mesh_rank(dev, filters, seqs, workload, want["mb"], want["mr"])
+    out.update(rank=rank, setup_s=setup_s, seconds=time.monotonic() - t0)
+    print("RESULT " + json.dumps(out), flush=True)
+    distributed.shutdown_distributed()
+    return 0
+
+
+def mesh_rank(dev, filters, seqs: list[str], workload, want_b: np.ndarray, want_r: np.ndarray) -> dict:
+    """This rank's part of phase 17, in a group of MP_PROCESSES: the merged
+    stack's phase-A maxima over each of CROSS_MESHES (a warm-up call, then
+    every batch, timed, its collectives timed apart) held to ``want_b`` /
+    ``want_r`` [batches, BATCH, F], K1 and K2 once per owned cell and
+    batch; then the synth48 live loop over the first mesh (phase_live's
+    checks)."""
+    stack, _ = plan_stacks(FilterStack(filters[:3], "cpu"), FilterStack(filters[3:], "cpu"))
+    _, batches = phase_a_batches(seqs, dev)
+    out = {"all_bits": stack.bits.numel() * 4}
+    for shape in CROSS_MESHES:
+        per_rank = math.prod(parse_mesh_shape(shape).values()) // MP_PROCESSES
+        sharded = ShardedFilterStack(stack, make_mesh(shape, distributed.global_devices([dev] * per_rank)))
+        sharded.max_counts_dual(*batches[0])
+        collective: list[float] = []
+        sharded_module.allreduce_max = timed_collective(collective)
+        try:
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            _reset_counters()
+            t1 = time.perf_counter()
+            got = [sharded.max_counts_dual(*b) for b in batches]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+        finally:
+            sharded_module.allreduce_max = distributed.allreduce_max
+        launches = _counters()
+        same = all(np.array_equal(mb.cpu().numpy(), want_b[k]) and np.array_equal(mr.cpu().numpy(), want_r[k])
+                   for k, (mb, mr) in enumerate(got))
+        n = len(batches)
+        out[shape] = dict(
+            same=same, cells=[list(c) for c in sharded.cells], bits_bytes=sharded.bits_bytes,
+            ms_per_call=dt * 1e3 / n, collective_ms_per_call=sum(collective) * 1e3 / n,
+            device_ms_per_call=(dt - sum(collective)) * 1e3 / n, collectives=len(collective), launches=launches,
+        )
+        check(same, f"mesh {shape}: maxima differ from the unsharded stack")
+        expect = len(sharded.cells) * n
+        check(launches["K1"] == expect and launches["K2"] == expect and len(collective) == n,
+              f"mesh {shape}: launches {launches}, {len(collective)} collectives; expected {expect} of K1 "
+              f"and K2 and {n} collectives")
+    mesh = make_mesh(CROSS_MESHES[0], distributed.global_devices([dev]))
+    live = phase_live(dev, filters, workload, "synth48", mesh=mesh)
+    out["live"] = {k: live[k] for k in ("ticks", "unblocked", "stop_received", "unclassified", "actions_failed",
+                                        "p50_ms", "p95_ms", "max_ms", "wall_s", "launches")}
+    return out
+
+
+def wait_all(procs: list, timeout: float) -> None:
+    """Wait for every process; kill them all as soon as one exits non-zero
+    or the time is up."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def phase_mesh(engine: ClassifyEngine, seqs: list[str], cache: Path, in_process_ms: float | None) -> dict:
+    """Phase 17: two processes on the card in one gloo group, each naming
+    cuda:0, each holding only its cells' word blocks (mesh_worker).  On
+    CROSS_MESHES the maxima of phase A's batches are bit-equal to the
+    unsharded stack's in both ranks, K1 and K2 launch once per owned cell
+    and batch in each; the synth48 live loop over the cross-process
+    bins:2 mesh unblocks 1,024 and stops 1,024 reads in each rank."""
+    t0 = time.monotonic()
+    _, want, unsharded_ms = unsharded_maxima(engine, seqs)
+    with tempfile.TemporaryDirectory() as td:
+        work = Path(td)
+        (work / "cache").symlink_to(cache)
+        np.savez(work / "want.npz", mb=torch.stack([w[0] for w in want]).cpu().numpy(),
+                 mr=torch.stack([w[1] for w in want]).cpu().numpy())
+        port = _free_port()
+        logs = [(open(work / f"rank{r}.out", "w"), open(work / f"rank{r}.err", "w")) for r in range(MP_PROCESSES)]
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r), str(port),
+                                   str(work)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                                  stdout=out, stderr=err)
+                 for r, (out, err) in enumerate(logs)]
+        wait_all(procs, MESH_PHASE_TIMEOUT_S)
+        for out, err in logs:
+            out.close()
+            err.close()
+        texts = [((work / f"rank{r}.out").read_text(), (work / f"rank{r}.err").read_text())
+                 for r in range(MP_PROCESSES)]
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        check(not failed, "; ".join(f"mesh rank {r} exited {procs[r].returncode}: {texts[r][0][-800:]}\n"
+                                    f"{texts[r][1][-2500:]}" for r in failed))
+        results = []
+        for r, (text, _) in enumerate(texts):
+            lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+            check(len(lines) == 1, f"mesh rank {r} printed {len(lines)} RESULT lines: {text[-1500:]}")
+            results.append(json.loads(lines[0][len("RESULT "):]))
+    out = {"seconds": time.monotonic() - t0, "unsharded_ms_per_batch": unsharded_ms,
+           "in_process_bins2_ms_per_batch": in_process_ms, "ranks": results}
+    for res in results:
+        r = res["rank"]
+        for shape in CROSS_MESHES:
+            d = res[shape]
+            check(d["same"] and d["launches"]["K1"] > 0 and d["launches"]["K2"] > 0,
+                  f"mesh rank {r}, {shape}: {d}")
+            say(f"mesh across processes {shape}, rank {r}: cells {d['cells']}, resident bits "
+                f"{d['bits_bytes'] / 1e6:.1f} of {res['all_bits'] / 1e6:.1f} MB; {len(want)} batches bit-equal to "
+                f"the unsharded stack; {d['ms_per_call']:.2f} ms per max_counts_dual call = device "
+                f"{d['device_ms_per_call']:.2f} + collective {d['collective_ms_per_call']:.2f} "
+                f"({d['collectives']} all-reduces); K1 {d['launches']['K1']}, K2 {d['launches']['K2']}")
+        live = res["live"]
+        check(live["unblocked"] == LIVE_READS // 2 and live["stop_received"] == LIVE_READS // 2,
+              f"mesh rank {r}: live {live}")
+        say(f"mesh across processes live (synth48, {CROSS_MESHES[0]}), rank {r}: unblocked {live['unblocked']}, "
+            f"stop_receiving {live['stop_received']}, {live['ticks']} ticks in {live['wall_s']:.2f} s, p50 "
+            f"{live['p50_ms']:.2f} ms, p95 {live['p95_ms']:.2f} ms; launches {live['launches']}; rank's phase "
+            f"{res['seconds']:.2f} s (set-up {res['setup_s']:.2f} s)")
+    ref = f"in-process bins:2 {in_process_ms:.2f}, " if in_process_ms is not None else ""
+    say(f"mesh across processes: per batch {ref}unsharded {unsharded_ms:.2f} ms; phase {out['seconds']:.2f} s")
+    return out
 
 
 def phase_remote(dev, filter_dir: Path, workload) -> dict:
@@ -1746,12 +1964,21 @@ def phase_probes(dev) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--k2-only"], ["--k4-k5-only"], ["--probes-only"]):
-        print("usage: python3 chip_smoke.py [--k2-only | --k4-k5-only | --probes-only]", file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    if len(argv) == 4 and argv[0] == "--mesh-rank":
+        return mesh_worker(int(argv[1]), int(argv[2]), Path(argv[3]))
+    if argv not in ([], ["--k2-only"], ["--k4-k5-only"], ["--probes-only"], ["--mesh-only"]):
+        print("usage: python3 chip_smoke.py [--k2-only | --k4-k5-only | --probes-only | --mesh-only]",
+              file=sys.stderr)
+        return 2
+    with tempfile.TemporaryDirectory() as cache:
+        return run(argv, Path(cache))
+
+
+def run(argv: list[str], cache: Path) -> int:
+    """The phases; ``cache`` holds the bench filters phase 3 saves."""
     dev = torch.device("cuda")
     torch.set_float32_matmul_precision("highest")  # the reference's precision="highest"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1776,7 +2003,7 @@ def main(argv: list[str]) -> int:
         return 0
 
     t0 = time.monotonic()
-    filters, genomes = phase_state(dev)
+    filters, genomes = phase_state(dev, cache)
     engine = ClassifyEngine(filters[:3], filters[3:], error_rate=ERROR_RATE, batch_size=BATCH, device=dev)
     stack, n_t = engine._plan
     check(stack is not None and stack.words == 72 and n_t == 3, "merged stack of 3+1 filters, W=72")
@@ -1791,6 +2018,12 @@ def main(argv: list[str]) -> int:
     workload = live_workload(genomes, LIVE_READS, LIVE_READ_LEN)
     live_seqs = [seq for _, _, seq, _ in workload]
     say(f"live reads: bench_live's {len(workload)} reads of {LIVE_READ_LEN} bp: {time.monotonic() - t0:.2f} s")
+
+    if argv == ["--mesh-only"]:
+        mesh = phase_mesh(engine, seqs, cache, None)
+        say("mesh across processes: " + json.dumps(mesh))
+        print(card_text, flush=True)
+        return 0
 
     if argv == ["--k4-k5-only"]:
         t0 = time.monotonic()
@@ -1870,7 +2103,7 @@ def main(argv: list[str]) -> int:
 
         t0 = time.monotonic()
         sharded = phase_sharded(engine, seqs)
-        live["sharded"] = phase_live(dev, filters, workload, "synth48", mesh=LIVE_MESH)
+        live["sharded"] = phase_live(dev, filters, workload, "synth48", mesh=_mesh(LIVE_MESH, dev))
         sharded["seconds"] = time.monotonic() - t0
         say(f"sharded phase: {sharded['seconds']:.2f} s")
         say("sharded: " + json.dumps({**{k: v for k, v in sharded.items() if k not in SHARD_MESHES},
@@ -1907,11 +2140,19 @@ def main(argv: list[str]) -> int:
     probes = phase_probes(dev)
     say("probes: " + json.dumps({k: v for k, v in probes.items() if k != "launches"}))
 
+    mesh = phase_mesh(engine, seqs, cache, sharded["bins:2"]["ms_per_batch"])
+    say(f"mesh across processes phase: {mesh['seconds']:.2f} s")
+    say("mesh across processes: " + json.dumps(mesh))
+
     paths_launched = {"classify": launches, "live_synth48": live["synth48"]["launches"],
                       "live_oracle": live["oracle"]["launches"],
                       **{f"sharded_{m}": sharded[m]["launches"] for m in SHARD_MESHES},
                       f"live_synth48_sharded_{LIVE_MESH}": live["sharded"]["launches"],
-                      "remote_server": remote["launches"], **tools["launches"], **probes["launches"]}
+                      "remote_server": remote["launches"], **tools["launches"], **probes["launches"],
+                      **{f"mesh_processes_{m}_rank{res['rank']}": res[m]["launches"]
+                         for res in mesh["ranks"] for m in CROSS_MESHES},
+                      **{f"live_synth48_mesh_processes_{CROSS_MESHES[0]}_rank{res['rank']}": res["live"]["launches"]
+                         for res in mesh["ranks"]}}
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     rows = []
     for k, name, where in (

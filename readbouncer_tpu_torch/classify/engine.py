@@ -9,6 +9,10 @@ Same structure and the same decisions as the JAX engine:
   remaining chunks, bucketed by how many chunks their length provides;
 * a 3-stage pipeline (submit -> dispatch phase B -> collect) keeps the
   device busy across host batches;
+* ``classify_sequences_waves`` keeps the JAX engine's chunk-wave route,
+  one pass per chunk over the still-unclassified reads through
+  ``FilterStack.counts`` / ``max_counts`` and the numpy policy: the
+  semantics oracle the tests hold the two-phase path against;
 * reads shorter than ``chunk_length`` are "too short"; a classified
   read's full sequence goes to its best target's FASTA, an unclassified
   one to ``unclassified.fasta`` (reference: src/main/classify.hpp:142-380).
@@ -36,6 +40,8 @@ from readbouncer_tpu_torch.classify.fused import (
     plan_stacks,
     unpack_results_np,
 )
+from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
+from readbouncer_tpu_torch.classify.policy import classify_decisions
 from readbouncer_tpu_torch.device import resolve_device, upload
 from readbouncer_tpu_torch.errors import EmptyFilterError
 from readbouncer_tpu_torch.fastio.fasta import FastaWriter, read_records
@@ -229,6 +235,57 @@ class ClassifyEngine:
                 drain_one()
         while in_flight:
             drain_one()
+        return classified, best, attempts
+
+    def classify_fragments(self, frags: np.ndarray, lens: np.ndarray):
+        """One wave: decisions for a batch of chunk fragments (u8 [R, L]
+        codes, [R] lengths), each stack counted by ``FilterStack.counts``
+        and reduced by ``max_counts`` at both error rates.
+
+        Returns (classified[R] bool, best_target[R] int).
+        """
+        maxima = {}
+        for kind, stack in (("t", self.targets), ("d", self.depletes)):
+            if stack is None:
+                maxima[kind] = (None, None)
+                continue
+            cnt = stack.counts(torch.from_numpy(frags), torch.from_numpy(lens))
+            maxima[kind] = tuple(
+                stack.max_counts(cnt, torch.from_numpy(
+                    ci_and_threshold_batch(lens, stack.kmer_size, rate, self.significance).astype(np.int32)
+                )).cpu().numpy()
+                for rate in (self.error_rate, self.error_rate - 0.02)
+            )
+        (t_base, t_retry), (d_base, d_retry) = maxima["t"], maxima["d"]
+        return classify_decisions(t_base, d_base, t_retry, d_retry)
+
+    def classify_sequences_waves(self, seqs: list[str]):
+        """Chunk-wave route: wave ``i`` classifies chunk ``i`` of every read
+        still unclassified and long enough, in batches of ``batch_size``.
+
+        The reference's control flow, kept as the semantics oracle of the
+        two-phase path (same results).  Returns (classified[N] bool,
+        best_target[N] int, attempts[N] int).
+        """
+        n = len(seqs)
+        classified = np.zeros(n, dtype=bool)
+        best = np.full(n, -1, dtype=np.int64)
+        attempts = np.zeros(n, dtype=np.int64)
+        seq_lens = np.array([len(s) for s in seqs], dtype=np.int64)
+        cl = self.chunk_length
+        for i in range(self.max_chunks):
+            active = np.flatnonzero(~classified & (seq_lens > i * cl))
+            if active.size == 0:
+                break
+            for start in range(0, active.size, self.batch_size):
+                idx = active[start : start + self.batch_size]
+                frags, lens = encode_batch([seqs[j][i * cl : (i + 1) * cl] for j in idx], cl,
+                                           batch=self.batch_size)
+                ok, b = self.classify_fragments(frags, lens)
+                ok, b = ok[: idx.size], b[: idx.size]
+                classified[idx] |= ok
+                best[idx] = np.where(ok, b, best[idx])
+                attempts[idx] += 1
         return classified, best, attempts
 
 

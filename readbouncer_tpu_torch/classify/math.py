@@ -11,8 +11,9 @@ implementation exactly, including its integer-conversion quirks:
 * ``rational_approximation`` / ``normal_cdf_inverse`` — the
   Abramowitz-Stegun 26.2.23 approximation of the inverse normal CDF
   (reference: src/IBF/IBF.hpp:268-308).
-* ``ci_and_threshold_batch`` — the Blanca et al. confidence interval on
-  the number of mutated k-mers (reference: src/IBF/IBF.hpp:320-338) and
+* ``calculate_ci`` — the Blanca et al. confidence interval on the number
+  of mutated k-mers (reference: src/IBF/IBF.hpp:320-338).
+* ``match_threshold`` / ``ci_and_threshold_batch`` — (scalar / batched)
   the minimum k-mer count for a bin to match, ``readlen - k + 1 - ci_high``,
   through the reference's uint16(readlen) -> int16(threshold) ->
   uint16(parameter) conversion chain (reference:
@@ -31,6 +32,8 @@ import numpy as np
 __all__ = [
     "rational_approximation",
     "normal_cdf_inverse",
+    "calculate_ci",
+    "match_threshold",
     "ci_and_threshold_batch",
 ]
 
@@ -73,6 +76,46 @@ def _var_n(q: float, r: float, k: float, L: float) -> float:
     )
 
 
+def calculate_ci(
+    r: float, kmer_size: int, readlen: int, confidence: float
+) -> tuple[int, int]:
+    """Confidence interval for the number of erroneous k-mers in a read.
+
+    Returns ``(low, high)`` with the reference's uint16 wrap semantics.
+    Reference: src/IBF/IBF.hpp:320-338.
+    """
+    q = 1.0 - (1.0 - r) ** float(kmer_size)
+    L = float(readlen) - float(kmer_size) + 1.0
+    var_n = _var_n(q, r, float(kmer_size), L)
+    alpha = 1.0 - confidence
+    z = normal_cdf_inverse(1.0 - alpha / 2.0)
+    if var_n < 0.0:
+        # tiny reads make the variance model negative; the reference takes
+        # sqrt(<0) = NaN and the x86 double->uint16 cast of NaN yields 0
+        # (cvttsd2si indefinite 0x80000000, truncated).  Reproduced.
+        return (0, 0)
+    sd = math.sqrt(var_n)
+    low = int(math.floor(L * q - z * sd)) & 0xFFFF
+    high = int(math.ceil(L * q + z * sd)) & 0xFFFF
+    return (low, high)
+
+
+def match_threshold(
+    readlen: int, kmer_size: int, error_rate: float, significance: float
+) -> int:
+    """Effective uint16 per-bin match threshold for a read.
+
+    ``threshold = readlen - k + 1 - ci_high`` through the reference's
+    uint16(readlen) -> int16 -> uint16 conversion chain.  The returned
+    value is what the per-bin count comparison actually uses; a read whose
+    raw threshold is negative gets a value near 65535 and matches nothing.
+    Reference: src/IBF/IBFClassify.cpp:102-113.
+    """
+    _, ci_high = calculate_ci(error_rate, kmer_size, readlen, significance)
+    readlen_u16 = readlen & 0xFFFF
+    return (readlen_u16 - kmer_size + 1 - ci_high) & 0xFFFF
+
+
 def ci_and_threshold_batch(
     readlens: np.ndarray,
     kmer_size: int,
@@ -81,8 +124,8 @@ def ci_and_threshold_batch(
 ) -> np.ndarray:
     """Vectorized uint16 thresholds for a batch of read lengths.
 
-    float64 numpy implementation of the JAX package's scalar
-    ``match_threshold``; bit-identical to it (verified by its tests).  Lengths below ``kmer_size``
+    float64 numpy implementation of :func:`match_threshold`; bit-identical
+    to the scalar path (verified by tests).  Lengths below ``kmer_size``
     get threshold 0xFFFF (no bin can ever match; callers treat such reads
     as un-classifiable, mirroring the reference's skip/throw behavior at
     src/IBF/IBFClassify.cpp:251,318).

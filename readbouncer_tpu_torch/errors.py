@@ -1,9 +1,9 @@
 """Typed errors raised by the port.
 
-A copy of the classes of readbouncer_tpu/errors.py that this package
-raises (the port imports nothing of the JAX package).  Names, bases and
-meaning are the same, so callers catch the same types from either
-package; every class also derives from ``ValueError`` as there.
+A copy of readbouncer_tpu/errors.py (the port imports nothing of the
+JAX package).  Names, bases and meaning are the same, so callers catch
+the same types from either package; every class also derives from
+``ValueError`` as there.
 """
 
 from __future__ import annotations
@@ -12,6 +12,9 @@ __all__ = [
     "ReadBouncerError",
     "IBFError",
     "BuildError",
+    "ClassifyError",
+    "ShortReadError",
+    "CountError",
     "InvalidParamsError",
     "EmptyFilterError",
     "BinCapacityError",
@@ -35,6 +38,19 @@ class IBFError(ReadBouncerError, ValueError):
 
 class BuildError(IBFError):
     """Filter construction failed (IBFBuildException analog)."""
+
+
+class ClassifyError(IBFError):
+    """Read classification failed (IBFClassifyException analog)."""
+
+
+class ShortReadError(ClassifyError):
+    """Sequence shorter than the k-mer size where a classification was
+    required (ShortReadException analog)."""
+
+
+class CountError(ClassifyError):
+    """k-mer counting failed (CountKmerException analog)."""
 
 
 class InvalidParamsError(BuildError):

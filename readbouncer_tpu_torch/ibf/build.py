@@ -11,7 +11,8 @@ a sequence is hashed at once on the device and its bits set in a bool
 filter at the end.  The table takes one byte per bit of the bins it
 covers: 0.71 GB for one 512-bin bench filter (1,236,269 rows x 576
 padded bins).  ``update_ibf`` covers only the words from the first new
-bin on.
+bin on.  ``insert_sequence`` is the JAX package's numpy scatter-OR of
+one fragment, the host oracle of the device build.
 """
 
 from __future__ import annotations
@@ -27,13 +28,14 @@ import torch
 from readbouncer_tpu_torch.device import resolve_device
 from readbouncer_tpu_torch.errors import BinCapacityError
 from readbouncer_tpu_torch.fastio.fasta import read_records
-from readbouncer_tpu_torch.ibf.hashing import POW5, encode_bases
+from readbouncer_tpu_torch.ibf.hashing import POW5, encode_bases, hash_rows_np, kmer_codes_np
 from readbouncer_tpu_torch.ibf.params import IBFParams, optimal_bins
 from readbouncer_tpu_torch.ibf.query import hash_rows_all
 from readbouncer_tpu_torch.ibf.storage import IBFData
 
 __all__ = [
-    "BuildStats", "cut_out_nnns", "fragment_bounds", "build_ibf_records", "build_ibf", "update_ibf",
+    "BuildStats", "cut_out_nnns", "fragment_bounds", "insert_sequence", "build_ibf_records", "build_ibf",
+    "update_ibf",
 ]
 
 
@@ -81,6 +83,25 @@ def fragment_bounds(seqlen: int, fragment_length: int, kmer_size: int) -> list[t
         frag_idx += 1
         fragstart = frag_idx * fragment_length - kmer_size + 1
     return bounds
+
+
+def insert_sequence(ibf: IBFData, bases: np.ndarray, bin_id: int) -> None:
+    """Insert every forward k-mer of an encoded fragment into *bin_id*, on
+    the host (numpy).
+
+    The reference inserts only forward-strand k-mers at build time;
+    reverse complements are handled at query time as a second count pass
+    (reference: src/IBF/IBFClassify.cpp:97-98).
+    """
+    fwd, _ = kmer_codes_np(bases, ibf.kmer_size)
+    if fwd.size == 0:
+        return
+    rows = hash_rows_np(fwd, ibf.hash_functions, ibf.rows, scheme=ibf.scheme)  # [n, h]
+    word = np.uint32(bin_id // 32)
+    mask = np.uint32(1 << (bin_id % 32))
+    flat = ibf.bits.reshape(-1)
+    idx = rows.reshape(-1).astype(np.int64) * ibf.words + int(word)
+    np.bitwise_or.at(flat, idx, mask)
 
 
 def _forward_codes(bases: torch.Tensor, k: int) -> torch.Tensor:

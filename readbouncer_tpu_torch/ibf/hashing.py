@@ -73,6 +73,7 @@ __all__ = [
     "BLOCK_ROWS",
     "SEEDS",
     "encode_bases",
+    "complement",
     "kmer_codes_np",
     "hash_rows_np",
     "block_offsets_np",
@@ -105,6 +106,11 @@ def encode_bases(seq: bytes | str | np.ndarray) -> np.ndarray:
         seq = seq.encode("ascii")
     arr = np.frombuffer(bytes(seq), dtype=np.uint8) if not isinstance(seq, np.ndarray) else seq
     return _BASE_LUT[arr]
+
+
+def complement(bases: np.ndarray) -> np.ndarray:
+    """Dna5 complement of encoded bases: 3-b for ACGT, N stays N."""
+    return np.where(bases < 4, 3 - bases, np.uint8(4)).astype(np.uint8)
 
 
 def kmer_codes_np(bases: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:

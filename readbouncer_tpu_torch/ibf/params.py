@@ -21,6 +21,7 @@ Golden: 2 bins, k=13, fragment_length=100000, h=3, fp=0.01
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 from readbouncer_tpu_torch.errors import InvalidParamsError
@@ -31,6 +32,7 @@ __all__ = [
     "blocked_rows_for_fp",
     "blocked_fp",
     "optimal_bins",
+    "filter_size_bits",
 ]
 
 
@@ -159,6 +161,19 @@ def optimal_bins(num_bins: int) -> int:
     return int(math.floor(num_bins / 64.0 + 1.0)) * 64
 
 
+def filter_size_bits(
+    num_bins: int,
+    fragment_length: int,
+    kmer_size: int = 13,
+    hash_functions: int = 3,
+    max_fp: float = 0.01,
+) -> int:
+    """Total filter size in bits. Reference: src/IBF/IBFBuild.cpp:404-413."""
+    return bin_size_bits(fragment_length, kmer_size, hash_functions, max_fp) * optimal_bins(
+        num_bins
+    )
+
+
 @dataclass
 class IBFParams:
     """Build/query parameters (reference: src/IBF/IBFConfig.hpp:48-145)."""
@@ -175,6 +190,15 @@ class IBFParams:
     # without beating rbt1's fused h-gather.  See ibf.hashing module doc
     # and docs/PERF_NOTES.md.
     hash_scheme: str = "rbt1"
+    # build worker threads of the JAX package's native insert; 0 = all
+    # available cores.  The port's build runs on the device and does not
+    # read it.  Reference analog: IBF_Params.threads
+    # (src/IBF/IBFConfig.hpp:98-105).
+    build_threads: int = 0
+
+    @property
+    def threads(self) -> int:
+        return self.build_threads if self.build_threads > 0 else (os.cpu_count() or 1)
 
     def validate(self) -> "IBFParams":
         from readbouncer_tpu_torch.ibf.hashing import SUPPORTED_SCHEMES
@@ -207,3 +231,6 @@ class IBFParams:
         return bin_size_bits(
             self.fragment_length, self.kmer_size, self.hash_functions, self.max_fp
         )
+
+    def total_bits(self, num_bins: int) -> int:
+        return self.rows * optimal_bins(num_bins)

@@ -268,17 +268,22 @@ def live_config(config: ConfigReader):
 
 def live_mesh(config: ConfigReader, device):
     """The mesh of ``[TPU] mesh_shape`` for the sharded live classifier:
-    over the visible cards, or with ``--device cpu`` over as many CPU
-    shards as the shape asks."""
+    over this process's visible cards, or with ``--device cpu`` over as
+    many CPU shards as the shape asks.  Under ``[TPU] coordinator`` each
+    process replays its own share of the reads, so the mesh stays the
+    process's own (never the group's)."""
     import math
+
+    import torch
 
     from readbouncer_tpu_torch.device import resolve_device
     from readbouncer_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
 
     shape = parse_mesh_shape(config.tpu.mesh_shape)
-    devices = None
     if resolve_device(device).type == "cpu":
         devices = ["cpu"] * math.prod(shape.values())
+    else:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return make_mesh(shape, devices)
 
 

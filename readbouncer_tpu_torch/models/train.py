@@ -226,7 +226,10 @@ def make_sharded_train_step(
 ) -> _TrainStep:
     """Data-parallel train step over ``mesh``'s ``data`` axis: params
     replicated, batch split, gradients averaged onto the params' device
-    (and across processes), one update."""
+    (and across processes), one update.  The mesh is this process's own:
+    each process passes its own batch."""
+    if mesh.spans_processes:
+        raise ValueError("the train step's mesh must be this process's own; it spans processes")
     return _TrainStep(optimizer_factory, max_grad_norm, mesh)
 
 

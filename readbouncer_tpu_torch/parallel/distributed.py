@@ -2,14 +2,18 @@
 readbouncer_tpu/parallel/distributed.py.
 
 * ``init_distributed`` joins N processes (one per host) into one gloo
-  process group.  gloo, not NCCL: every collective here moves host
-  scalars (counters, gradients of a small net), and NCCL refuses two
-  ranks on one card.
-* Input is sharded per process: each reads or replays only its slice of
-  the read records or channels (``host_shard``), so the only traffic
-  between processes is the scalar merge of the report.
+  process group.  gloo, not NCCL: every collective here moves small
+  host tensors (counters, gradients of a small net, a batch's
+  per-filter maxima), and NCCL refuses two ranks on one card.
+* The CLI shards input per process: each reads or replays only its
+  slice of the read records or channels (``host_shard``), so the only
+  traffic between processes is the scalar merge of the report.
 * ``allgather_pytree`` / ``aggregate_counters`` gather and sum host
   results for the report that rank 0 prints.
+* ``global_devices`` lists every process's devices in rank order (the
+  counterpart of ``jax.devices()`` in a group), so a ``Mesh`` can span
+  processes; ``allreduce_max`` merges the per-filter maxima of a
+  bins-sharded stack across them (parallel/sharded.py).
 
 Config: ``[TPU] coordinator = "host0:8476"``, ``num_processes``,
 ``process_id``, or torchrun's ``MASTER_ADDR`` / ``MASTER_PORT`` /
@@ -22,12 +26,14 @@ from __future__ import annotations
 
 import atexit
 import os
+from dataclasses import dataclass
 from datetime import timedelta
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from readbouncer_tpu_torch.device import resolve_device
 from readbouncer_tpu_torch.errors import ConfigError
 
 __all__ = [
@@ -39,6 +45,9 @@ __all__ = [
     "host_shard",
     "allgather_pytree",
     "aggregate_counters",
+    "RankDevice",
+    "global_devices",
+    "allreduce_max",
 ]
 
 # how long a process waits for the others: to join the group, and in
@@ -154,3 +163,48 @@ def aggregate_counters(counters: dict[str, int | float]) -> dict[str, int | floa
         ftotal = allgather_pytree(fvec).sum(axis=0)
         out.update({k: float(v) for k, v in zip(flt_keys, ftotal)})
     return out
+
+
+@dataclass(frozen=True)
+class RankDevice:
+    """A device of the group: the rank of the process that drives it, and
+    the device as that process names it."""
+
+    rank: int
+    device: torch.device
+
+
+def global_devices(local: list | None = None) -> list[RankDevice]:
+    """Every process's devices in rank order, each naming its owning rank:
+    the counterpart of ``jax.devices()`` inside a group, gathered with one
+    ``all_gather_object`` (every process must call it).
+
+    ``local`` is this process's share (default: its visible cards; raises
+    without one) and may name one device several times, as ``[cuda:0] *
+    2``.  Outside a group the list is this process's alone, as rank 0.
+    """
+    if local is None:
+        resolve_device(None)  # raises without a card
+        local = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    names = [str(resolve_device(d)) for d in local]
+    gathered = [names]
+    if process_count() > 1:
+        gathered = [None] * process_count()
+        dist.all_gather_object(gathered, names)
+    return [RankDevice(rank, torch.device(n)) for rank, ns in enumerate(gathered) for n in ns]
+
+
+def allreduce_max(t: torch.Tensor) -> torch.Tensor:
+    """Elementwise max of an int32 tensor over every process of the group,
+    returned on ``t``'s device; in a single-process run ``t`` itself.
+
+    Like ``allgather_pytree`` it travels as a CPU tensor over the gloo
+    group: gloo, because NCCL refuses two ranks on one card.
+    """
+    if t.dtype != torch.int32:
+        raise TypeError(f"allreduce_max takes int32 tensors, got {t.dtype}")
+    if process_count() == 1:
+        return t
+    host = t.to("cpu", copy=True)
+    dist.all_reduce(host, op=dist.ReduceOp.MAX)
+    return host.to(t.device)

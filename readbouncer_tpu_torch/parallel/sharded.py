@@ -5,19 +5,24 @@ Where the JAX package annotates one program and lets GSPMD insert the
 collectives, this module drives each cell of the mesh itself:
 
 * the bit matrix ``bits[rows, W]`` is cut on its word axis into ``bins``
-  contiguous column blocks, each copied to its device (the row gather
-  stays local to a block: hash rows index axis 0);
-* a read batch is cut into ``data`` slices;
-* each (data, bins) cell runs K1 (``counts_planes``) and K2
+  contiguous column blocks (the row gather stays local to a block: hash
+  rows index axis 0); each process copies to its devices only the blocks
+  of the cells it owns;
+* a read batch is cut into ``data`` slices; every process passes the
+  whole global batch, as every JAX process does;
+* each owned (data, bins) cell runs K1 (``counts_planes``) and K2
   (``planes_dual_max``) over its block's words, mask words and its own
-  segment table: each filter's segment clipped to the block, filters with
-  no word there left out;
-* the cells of a data row merge their per-filter maxima with a max on the
-  row's first device (the counterpart of GSPMD's reduce over the bins
-  axis), and the rows are concatenated on the mesh's first device.
+  segment table (each filter's segment of the global word split, clipped
+  to the block; filters with no word there left out);
+* the cells' per-filter maxima merge with a max on the process's first
+  device, zeros standing for the cells of other processes (the
+  counterpart of GSPMD's reduce over the bins axis); on a mesh that spans
+  processes one max all-reduce of the stacked [2, R, F] maxima then
+  merges the processes (``distributed.allreduce_max``).
 
 The merge is exact: a filter's maximum over its bins is the max of its
-maxima over the blocks, and a block holding none of its words gives 0.
+maxima over the blocks, maxima are >= 0, and a block or a process
+holding none of its words gives 0.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from readbouncer_tpu_torch.classify.fused import live_decisions, plan_stacks
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.ibf.query import FilterStack, counts_planes
 from readbouncer_tpu_torch.ops.ibf_count import planes_dual_max
+from readbouncer_tpu_torch.parallel.distributed import allreduce_max
 from readbouncer_tpu_torch.parallel.mesh import BINS_AXIS, DATA_AXIS, Mesh
 from readbouncer_tpu_torch.stream.scheduler import live_bucket_batches, live_bucket_widths
 
@@ -48,7 +54,9 @@ class ShardedFilterStack:
     Requires the stack's word count to divide over the ``bins`` axis and
     the read batch to divide over the ``data`` axis, as the reference
     does.  A mesh may carry only one of the two axes; a missing axis
-    means replicated.
+    means replicated.  On a mesh that spans processes every process must
+    build it and make the same calls with the same global batch: each
+    call makes one collective.
     """
 
     def __init__(self, stack: FilterStack, mesh: Mesh):
@@ -75,16 +83,22 @@ class ShardedFilterStack:
                     segs.append(((a - w0) * 32, (b - a) * 32))
                     cols.append(f)
             self.shards.append((w0, w1, tuple(segs), cols))
-        # each cell's block on its device; cells on one device share a copy
+        # the cells this process owns, each one's block on its device;
+        # owned cells on one device share a copy
+        self.cells = [
+            (i, j) for i in range(self.data_shards) for j in range(n_bins_shards)
+            if mesh.owns(**{DATA_AXIS: i, BINS_AXIS: j})
+        ]
+        self.home = self.device(*self.cells[0])
         self._blocks: dict[tuple[str, int], tuple[torch.Tensor, torch.Tensor]] = {}
-        for i in range(self.data_shards):
-            for j, (w0, w1, _, _) in enumerate(self.shards):
-                dev = self.device(i, j)
-                if (str(dev), j) not in self._blocks:
-                    self._blocks[(str(dev), j)] = (
-                        stack.bits[:, w0:w1].contiguous().to(dev),
-                        stack.mask_words[w0:w1].contiguous().to(dev),
-                    )
+        for i, j in self.cells:
+            w0, w1 = self.shards[j][:2]
+            dev = self.device(i, j)
+            if (str(dev), j) not in self._blocks:
+                self._blocks[(str(dev), j)] = (
+                    stack.bits[:, w0:w1].contiguous().to(dev),
+                    stack.mask_words[w0:w1].contiguous().to(dev),
+                )
 
     @property
     def data_shards(self) -> int:
@@ -94,6 +108,11 @@ class ShardedFilterStack:
         """The device of data slice ``i`` and word block ``j``."""
         return self.mesh.device_at(**{DATA_AXIS: i, BINS_AXIS: j})
 
+    @property
+    def bits_bytes(self) -> int:
+        """Bytes of filter bits this process holds on its devices."""
+        return sum(bits.numel() * bits.element_size() for bits, _ in self._blocks.values())
+
     def max_counts_dual(
         self,
         reads,  # u8 [R, L] codes
@@ -102,8 +121,10 @@ class ShardedFilterStack:
         thr_retry,  # [R]
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-filter max matched counts at both thresholds, int32 [R, F]
-        x2, on the mesh's first device.  R must be a multiple of the data
-        axis size."""
+        x2, on this process's first device of the mesh.  R must be a
+        multiple of the data axis size.  Every process gets all R rows,
+        where JAX gives each process its addressable rows: all of them on
+        a bins-only mesh."""
         R = reads.shape[0]
         if R % self.data_shards != 0:
             raise ValueError(
@@ -114,31 +135,26 @@ class ShardedFilterStack:
         thr_base = _tensor(thr_base, torch.int32, np.int32)
         thr_retry = _tensor(thr_retry, torch.int32, np.int32)
         st = self.stack
-        F = st.num_filters
         S = R // self.data_shards
-        first = self.device(0, 0)
-        rows_b, rows_r = [], []
-        for i in range(self.data_shards):
+        out = torch.zeros((2, R, st.num_filters), dtype=torch.int32, device=self.home)
+        for i, j in self.cells:
             sl = slice(i * S, (i + 1) * S)
-            row_dev = self.device(i, 0)
-            mb_row = torch.zeros((S, F), dtype=torch.int32, device=row_dev)
-            mr_row = torch.zeros_like(mb_row)
-            for j, (_, _, segs, cols) in enumerate(self.shards):
-                dev = self.device(i, j)
-                bits, mask = self._blocks[(str(dev), j)]
-                planes = counts_planes(
-                    bits, reads[sl].to(dev), lengths[sl].to(dev),
-                    k=st.kmer_size, h=st.hash_functions, rows=st.rows, scheme=st.scheme,
-                )
-                mb, mr = planes_dual_max(
-                    planes, thr_base[sl].to(dev).contiguous(), thr_retry[sl].to(dev).contiguous(),
-                    mask, segs,
-                )
-                mb_row[:, cols] = torch.maximum(mb_row[:, cols], mb.to(row_dev))
-                mr_row[:, cols] = torch.maximum(mr_row[:, cols], mr.to(row_dev))
-            rows_b.append(mb_row.to(first))
-            rows_r.append(mr_row.to(first))
-        return torch.cat(rows_b), torch.cat(rows_r)
+            _, _, segs, cols = self.shards[j]
+            dev = self.device(i, j)
+            bits, mask = self._blocks[(str(dev), j)]
+            planes = counts_planes(
+                bits, reads[sl].to(dev), lengths[sl].to(dev),
+                k=st.kmer_size, h=st.hash_functions, rows=st.rows, scheme=st.scheme,
+            )
+            mb, mr = planes_dual_max(
+                planes, thr_base[sl].to(dev).contiguous(), thr_retry[sl].to(dev).contiguous(),
+                mask, segs,
+            )
+            cell = torch.stack([mb, mr]).to(self.home)
+            out[:, sl, cols] = torch.maximum(out[:, sl, cols], cell)
+        if self.mesh.spans_processes:
+            out = allreduce_max(out)
+        return out[0], out[1]
 
 
 class ShardedLiveClassifier:
@@ -147,8 +163,9 @@ class ShardedLiveClassifier:
     Drop-in for ``stream.scheduler.LiveClassifier``: the same ``decide``
     surface, the same length buckets and batches, the same decisions.
     The counts and both thresholds run through :class:`ShardedFilterStack`;
-    the decisions are taken on the mesh's first device and fetched in one
-    copy per call.  Selected by ``[TPU] mesh_shape`` in target mode
+    the decisions are taken on this process's first device of the mesh
+    and fetched in one copy per call.  Over a mesh that spans processes
+    every process decides the same sequences.  Selected by ``[TPU] mesh_shape`` in target mode
     (main.run_target).
     """
 
