@@ -37,8 +37,11 @@ Phases:
 
 1. card   — name and power limit (nvidia-smi), torch and CUDA versions;
 2. build  — nvcc builds every ops/csrc/*.cu (ibf_count, gru,
-            gather_probe), one process each, at once (seconds), with the
-            -Xptxas -v register / shared-memory / spill lines;
+            gather_probe), one process each, and the host C++ compiler
+            the native host library (readbouncer_tpu_torch/native), all
+            at once (seconds), with the -Xptxas -v register /
+            shared-memory / spill lines and the host compiler's name,
+            version and seconds;
 3. state  — tools/bench.py::bench_filters: the four bench genomes
             regenerated from bench.py's seeds (sha256 equal to the
             tracked .bench_cache FASTAs), the four filters built on the
@@ -47,6 +50,14 @@ Phases:
             loaded and compared), saved in tools.bench's cache layout
             under a temporary directory (phase 17 loads them), merged
             into one stack of W=72 words;
+   host   — the native host library against its plain versions:
+            encode_batch over bench's 40,960 reads bit-equal to
+            encode_batch_np, both timed on one 16,384-read job (median
+            of 5); read_records over the four genome FASTAs, a gzip copy
+            of one, the same genome at 80 bases a line and a FASTQ of
+            bench's reads, equal to the Python parser, both timed; genome 3's filter built on the CPU from
+            its FASTA through the native insert, bits sha256 equal to the
+            tracked filter's;
 4. kernels — K1 (accumulate_planes) and K2 (planes_dual_max) on real
             inputs of that stack at the phase-A and phase-B shapes of
             classify and the short bucket of the live loop, bit-equal to
@@ -63,7 +74,8 @@ Phases:
             run of the pipelined classify, then 3 timed runs, its JSON
             line printed): exactly 20,493 of 40,960 reads classified in
             every run, every run deciding as the warm-up, both kernel
-            counters > 0 over the timed runs, 256 reads' decisions equal
+            counters and the native encode_batch's calls > 0 over the
+            timed runs, 256 reads' decisions equal
             to the numpy oracle, and the first 2,048 reads' decisions,
             best targets and attempts equal to the chunk-wave oracle's
             (``ClassifyEngine.classify_sequences_waves``);
@@ -98,7 +110,8 @@ Phases:
             the Oracle caller; counters from the first tick on: 1,024 reads unblocked
             (every genome-3 read) and 1,024 stop_receiving (every genome-0
             read), nothing unclassified, no failed action, the K1, K2 (and
-            with the GRU, K3) counters risen; tick latencies;
+            with the GRU, K3) counters and the native encode_batch's
+            calls risen; tick latencies;
 9. cli live — `python -m readbouncer_tpu_torch` usage target (DeepNano
             caller, synth48) on a small replay FASTA: output FASTAs,
             decision CSV (less its timing column) and counters equal to
@@ -145,7 +158,7 @@ Phases:
             run of the plain versions decides them, read by read) and
             tools.bench_build (three builds of a 51.2 Mb genome on the
             card, the bits of all three equal to one build of the same
-            genome on the CPU);
+            genome on the CPU, which takes the native insert);
 16. probes — tools.proto_counts_layout at its full constants (R=8192,
             L=250, W=8, 1,236,269 rows): ripple, tree, flat, flatg and k1
             (``counts`` through K1) all equal, K1 launched, times beside
@@ -196,6 +209,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import ctypes
+import gzip
 import hashlib
 import json
 import math
@@ -207,6 +221,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from datetime import timedelta
 from pathlib import Path
@@ -215,11 +230,13 @@ import numpy as np
 import torch
 
 from readbouncer_tpu_torch import graft_entry
-from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch
+from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch, encode_batch_np
 from readbouncer_tpu_torch.classify.fused import LiveFused, plan_stacks, stack_dual_max, threshold_table
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.classify.policy import classify_decisions
 from readbouncer_tpu_torch.config import ConfigReader
+from readbouncer_tpu_torch.device import host_tensor
+from readbouncer_tpu_torch.fastio.fasta import read_records, read_records_py
 from readbouncer_tpu_torch.ibf.build import build_ibf
 from readbouncer_tpu_torch.ibf.hashing import encode_bases
 from readbouncer_tpu_torch.ibf.params import IBFParams
@@ -237,6 +254,8 @@ from readbouncer_tpu_torch.models.train import (
 from readbouncer_tpu_torch.ops import gather
 from readbouncer_tpu_torch.ops import gru as gru_ops
 from readbouncer_tpu_torch.ops import ibf_count
+from readbouncer_tpu_torch.native import CALLS as NATIVE_CALLS
+from readbouncer_tpu_torch.native import load_native
 from readbouncer_tpu_torch.ops._build import load_all, load_library
 from readbouncer_tpu_torch.parallel import distributed
 from readbouncer_tpu_torch.parallel import sharded as sharded_module
@@ -303,6 +322,7 @@ TOY_CPU_READS = 2_048  # bench_toy's reads decided again on the CPU
 K3_LOGITS_GATE = 1e-4  # the kernel forward's logits, max abs from the plain forward's
 PROTO_REPS = 3  # scripts/proto_counts_layout.py's timed calls per variant
 GRAFT_DRYRUN_DEVICES = 4
+HOST_REPS = 5  # timed runs of each encode in the host phase (median)
 
 
 class SmokeFailure(RuntimeError):
@@ -320,8 +340,15 @@ def say(msg: str) -> None:
 
 def phase_build() -> None:
     t0 = time.monotonic()
-    libs = load_all()
-    say(f"build: {len(libs)} libraries, one nvcc each, at once: {time.monotonic() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(load_native)  # the host C++ compiler, beside the nvcc builds
+        libs = load_all()
+        host = host.result()
+    say(f"build: {len(libs)} libraries, one nvcc each, and the host library, at once: "
+        f"{time.monotonic() - t0:.2f} s")
+    check(host.path.exists(), "native host library missing after build")
+    say(f"  host library: {host.compiler or 'c++'} {'built' if host.built else 'found'} {host.path.name} "
+        f"in {host.seconds:.2f} s ({host.module.__name__})")
     for kl in libs:
         check(kl.path.exists(), f"kernel library {kl.name} missing after build")
         say(f"  {kl.name}: nvcc {'built' if kl.built else 'found'} {kl.path.name} in {kl.seconds:.2f} s")
@@ -353,6 +380,76 @@ def phase_state(dev, cache: Path) -> tuple[list[IBFData], list[np.ndarray]]:
             )
             say(f"  {name}: equal to {tracked.name} loaded with the port's loader")
     return filters, genomes
+
+
+def _median_ms(fn, reps: int = HOST_REPS) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _records(reader, path: Path) -> tuple[list[tuple[str, str]], float]:
+    t0 = time.perf_counter()
+    recs = [(r.id, r.seq) for r in reader(path, first_word_id=True)]
+    return recs, (time.perf_counter() - t0) * 1e3
+
+
+def phase_host(genomes: list[np.ndarray], seqs: list[str], width: int, work: Path) -> dict:
+    """The native host library against its plain versions on the main
+    path's host work: encode_batch over bench's reads (bit-equal to
+    encode_batch_np; both timed on one PROFILE_READS job, median of
+    HOST_REPS), read_records over the four genome FASTAs (one line each),
+    a gzip copy of one, the same genome at 80 bases a line and a FASTQ of
+    bench's reads (equal to the Python parser; both timed), and the native
+    insert: genome 3's filter built on the CPU from its FASTA, bits sha256
+    equal to the tracked filter's."""
+    out = {}
+    got = encode_batch(seqs, width)
+    want = encode_batch_np(seqs, width)
+    check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+          f"host: native encode_batch differs from encode_batch_np on bench's {len(seqs)} reads")
+    job = seqs[:PROFILE_READS]
+    out["encode_ms"] = {"native": _median_ms(lambda: encode_batch(job, width)),
+                        "numpy": _median_ms(lambda: encode_batch_np(job, width))}
+    say(f"host: encode_batch of bench's {len(seqs)} reads x {width} bit-equal to encode_batch_np; one "
+        f"{len(job)}-read job, median of {HOST_REPS}: native {out['encode_ms']['native']:.2f} ms, numpy "
+        f"{out['encode_ms']['numpy']:.2f} ms ({out['encode_ms']['numpy'] / out['encode_ms']['native']:.1f}x)")
+
+    paths = write_genomes(genomes, work)
+    gz = work / f"{paths[0].name}.gz"
+    gz.write_bytes(gzip.compress(paths[0].read_bytes(), compresslevel=1))
+    wrapped = work / "g0_80_columns.fasta"  # genome 0 as FASTA files usually are: 80 bases a line
+    g0 = genomes[0].tobytes()
+    wrapped.write_bytes(b">g0\n" + b"".join(g0[i : i + 80] + b"\n" for i in range(0, len(g0), 80)))
+    fq = work / "bench_reads.fastq"
+    with open(fq, "w") as f:
+        for i, q in enumerate(seqs):
+            f.write(f"@read{i} bench\n{q}\n+\n{'I' * len(q)}\n")
+    out["parse_ms"] = {}
+    for path in [*paths, gz, wrapped, fq]:
+        nat, t_nat = _records(read_records, path)
+        py, t_py = _records(read_records_py, path)
+        check(nat == py and len(nat) > 0, f"host: {path.name} parses otherwise natively than in Python")
+        out["parse_ms"][path.name] = {"native": t_nat, "python": t_py, "records": len(nat),
+                                      "mb": path.stat().st_size / 1e6}
+        say(f"host: {path.name} ({path.stat().st_size / 1e6:.1f} MB, {len(nat)} records) equal through both "
+            f"readers: native {t_nat:.1f} ms, Python {t_py:.1f} ms")
+
+    before = NATIVE_CALLS["insert_fragments"]
+    t0 = time.monotonic()
+    ibf, _ = build_ibf([paths[3]], IBFParams(kmer_size=13, fragment_length=FRAGMENT), name=bench_name(3),
+                       device="cpu")
+    out["native_build_s"] = time.monotonic() - t0
+    sha = hashlib.sha256(ibf.bits.tobytes()).hexdigest()
+    check(NATIVE_CALLS["insert_fragments"] > before, "host: the CPU build did not take the native insert")
+    check(sha == BITS_SHA[3], f"host: genome 3's CPU build (native insert) has bits {sha}, not the tracked filter's")
+    out["native_build_threads"] = IBFParams().threads
+    say(f"host: genome 3's filter built on the CPU from its FASTA (native insert, {out['native_build_threads']} "
+        f"threads) in {out['native_build_s']:.2f} s, bits sha256 equal to the tracked filter's")
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -495,7 +592,7 @@ def _anded_inputs(engine: ClassifyEngine, frags: np.ndarray, lens: np.ndarray, t
     thresholds looked up in the given tables."""
     stack, _ = engine._plan
     dev = engine.device
-    frags_t = torch.from_numpy(np.ascontiguousarray(frags)).to(dev)
+    frags_t = host_tensor(frags).to(dev)
     lens_t = torch.from_numpy(lens.astype(np.int64)).to(dev)
     anded = anded_windows(
         stack.bits, frags_t, lens_t, k=stack.kmer_size, h=stack.hash_functions,
@@ -618,7 +715,7 @@ def phase_counts(engine: ClassifyEngine, seqs: list[str]) -> dict:
     stack, _ = engine._plan
     dev = engine.device
     reads, lens = encode_batch(seqs[:COUNTS_READS], COUNTS_CHUNK)
-    reads_t, lens_t = torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+    reads_t, lens_t = host_tensor(reads).to(dev), host_tensor(lens).to(dev)
     kw = dict(k=stack.kmer_size, h=stack.hash_functions, rows=stack.rows, scheme=stack.scheme)
     n = COUNTS_CHUNK - stack.kmer_size + 1
     n_pad = ibf_count.counts_v1_n_pad(n)
@@ -693,6 +790,7 @@ def phase_main(dev, engine: ClassifyEngine, filters, seqs: list[str]):
     reads."""
     out = run_bench(filters[:3], filters[3:], seqs, dev, before_timed=_reset_counters)
     launches = _counters()
+    native = dict(NATIVE_CALLS)
     line = out["line"]
     print(json.dumps(line), flush=True)
     classified, best, attempts = out["classified"], out["best"], out["attempts"]
@@ -700,13 +798,15 @@ def phase_main(dev, engine: ClassifyEngine, filters, seqs: list[str]):
     say(
         f"main: tools.bench classified {counts} of {len(seqs)} in the warm-up and {len(line['run_seconds'])} timed runs "
         f"({', '.join(f'{t:.3f}' for t in line['run_seconds'])} s), median {line['value']} reads/s on "
-        f"{line['device']}; launches over the timed runs K1={launches['K1']} K2={launches['K2']}; attempts "
+        f"{line['device']}; launches over the timed runs K1={launches['K1']} K2={launches['K2']}, native "
+        f"encode_batch calls {native.get('encode_batch', 0)}; attempts "
         f"histogram {np.bincount(attempts).tolist()}"
     )
     check(all(n == EXPECT_CLASSIFIED for n in counts), f"classified {counts}, expected {EXPECT_CLASSIFIED}")
     check(all(np.array_equal(c, classified) for c in out["classified_by_run"]),
           "a run decided otherwise than the warm-up")
     check(launches["K1"] > 0 and launches["K2"] > 0, f"kernel counters {launches}")
+    check(native.get("encode_batch", 0) > 0, f"main: the timed runs did not encode natively: {native}")
     check(((best >= 0) == classified).all(), "best target set exactly for classified reads")
     picks = np.linspace(0, len(seqs) - 1, ORACLE_READS).astype(int)
     t1 = time.monotonic()
@@ -1084,6 +1184,7 @@ def _reset_counters() -> None:
     gru_ops.gru_layer.launches = 0
     ibf_count.accumulate_counts.launches = 0
     gather.xor_gather.launches = 0
+    NATIVE_CALLS.clear()  # the host library's calls, counted by its callers
 
 
 def profile_live_tick(basecaller, classifier, workload) -> None:
@@ -1194,6 +1295,7 @@ def phase_live(dev, filters, workload, caller_name: str, mesh: Mesh | None = Non
           f"live {caller_name}: unclassified {stats.unclassified}, failed {stats.actions_failed}")
     needed = ("K1", "K2", "K3") if gru else ("K1", "K2")
     check(all(launches[k] > 0 for k in needed), f"live {caller_name}: kernel counters {launches}")
+    check(NATIVE_CALLS["encode_batch"] > 0, f"live {caller_name}: no native encode_batch call")
     if mesh is not None:
         cells = int((mesh.ranks == distributed.process_index()).sum())
         check(launches["K1"] == launches["K2"] and launches["K1"] % cells == 0,
@@ -1381,7 +1483,7 @@ def phase_a_batches(seqs: list[str], dev) -> tuple[list, list]:
     batches = []
     for s0 in range(0, len(seqs), BATCH):
         enc, lens = encode_batch([q[:cl] for q in seqs[s0 : s0 + BATCH]], cl)
-        r, l = torch.from_numpy(enc).to(dev), torch.from_numpy(lens.astype(np.int64)).to(dev)
+        r, l = host_tensor(enc).to(dev), torch.from_numpy(lens.astype(np.int64)).to(dev)
         batches.append((r, l, tabs[0].index_select(0, l), tabs[1].index_select(0, l)))
     return tabs, batches
 
@@ -1847,11 +1949,14 @@ def phase_tools(dev, filters, seqs: list[str], classified, best, attempts) -> di
     genome = bench_build.build_genome()
     bb = tool("tool_bench_build", lambda: bench_build.run_bench_build(genome, dev))
     t0 = time.monotonic()
+    before = NATIVE_CALLS["insert_fragments"]
     ref = bench_build.run_bench_build(genome, "cpu", runs=1)["bits_sha"][0]
+    out["cpu_build_s"] = time.monotonic() - t0
+    check(NATIVE_CALLS["insert_fragments"] > before, "tools.bench_build: the CPU build did not take the native insert")
     check(bb["bits_sha"] == [ref] * len(bb["bits_sha"]),
           f"tools.bench_build: the card's runs' bits {bb['bits_sha']} differ from the CPU build's {ref}")
     say(f"tools: bench_build's {len(bb['bits_sha'])} builds on the card equal the CPU build of the same genome "
-        f"({time.monotonic() - t0:.1f} s on the CPU)")
+        f"({out['cpu_build_s']:.2f} s on the CPU: native insert, {IBFParams().threads} threads)")
     needed = {"tool_profile_classify": ("K1", "K2"), "tool_bench_toy": ("K1", "K2")}
     for key, ks in needed.items():
         check(all(launches[key][k] > 0 for k in ks), f"tools: {key} launched {launches[key]}")
@@ -2018,6 +2123,13 @@ def run(argv: list[str], cache: Path) -> int:
     workload = live_workload(genomes, LIVE_READS, LIVE_READ_LEN)
     live_seqs = [seq for _, _, seq, _ in workload]
     say(f"live reads: bench_live's {len(workload)} reads of {LIVE_READ_LEN} bp: {time.monotonic() - t0:.2f} s")
+
+    if argv == []:
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory() as work:
+            host = phase_host(genomes, seqs, engine.chunk_length * engine.max_chunks, Path(work))
+        host["seconds"] = time.monotonic() - t0
+        say(f"host phase: {host['seconds']:.2f} s")
 
     if argv == ["--mesh-only"]:
         mesh = phase_mesh(engine, seqs, cache, None)
@@ -2213,8 +2325,11 @@ def run(argv: list[str], cache: Path) -> int:
     say(f"build: {json.dumps(built)}")
     live_line = {c: {k: v for k, v in d.items() if k != "launches"} for c, d in live.items() if c != "sharded"}
     say(f"live: {json.dumps(live_line)}")
+    say("host: " + json.dumps({**host, "cpu_reference_build_s": tools["cpu_build_s"]}))
     say(f"total: {time.monotonic() - t_all:.1f} s; main path {main_line['value']} reads/s; live p50 "
-        f"{live['synth48']['p50_ms']:.2f} ms per tick (synth48)")
+        f"{live['synth48']['p50_ms']:.2f} ms per tick (synth48); one {PROFILE_READS}-read encode: native "
+        f"{host['encode_ms']['native']:.2f} ms, numpy {host['encode_ms']['numpy']:.2f} ms; CPU reference build "
+        f"{tools['cpu_build_s']:.2f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_text, flush=True)
     print(json.dumps({

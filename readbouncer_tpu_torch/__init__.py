@@ -12,6 +12,9 @@ name.  The Pallas kernels on the ported paths are CUDA C++ kernels under
 ``readbouncer_tpu/ops/ibf_count_pallas.py``) and the GRU recurrence
 (``gru.cu``, for ``readbouncer_tpu/ops/gru_pallas.py``), each built with
 ``nvcc`` on first use and bound with ``ctypes`` (``ops/_build.py``).
+The JAX package's compiled host layer (``native/rbt_native.cpp``: base
+encoding, the FASTA/FASTQ reader, the build's insert) has its copy in
+``native/``, built with the host C++ compiler on first use.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.resolve_device``); without a card and without that explicit

@@ -3,7 +3,8 @@ counterpart of readbouncer_tpu/classify/engine.py.
 
 Same structure and the same decisions as the JAX engine:
 
-* reads are encoded once on the host (numpy, vectorised over the batch);
+* reads are encoded once on the host, by the native host library's
+  ``encode_batch`` (``readbouncer_tpu_torch/native``);
 * phase A scores chunk 0 of every read, one device pass per read batch;
 * phase B scores only the reads phase A left pending, on exactly their
   remaining chunks, bucketed by how many chunks their length provides;
@@ -42,18 +43,20 @@ from readbouncer_tpu_torch.classify.fused import (
 )
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.classify.policy import classify_decisions
-from readbouncer_tpu_torch.device import resolve_device, upload
+from readbouncer_tpu_torch.device import host_tensor, resolve_device, upload
 from readbouncer_tpu_torch.errors import EmptyFilterError
 from readbouncer_tpu_torch.fastio.fasta import FastaWriter, read_records
 from readbouncer_tpu_torch.ibf.hashing import _BASE_LUT
 from readbouncer_tpu_torch.ibf.query import FilterStack
 from readbouncer_tpu_torch.ibf.storage import IBFData
+from readbouncer_tpu_torch.native import CALLS, load_native
 
 __all__ = [
     "ClassifyResults",
     "ClassifyEngine",
     "classify_read_files",
     "encode_batch",
+    "encode_batch_np",
 ]
 
 
@@ -91,10 +94,30 @@ class ClassifyResults:
 def encode_batch(seqs: list[str], length: int, batch: int | None = None):
     """Encode + right-pad sequences to a fixed [R, length] u8 array.
 
-    Vectorised over the whole batch: one ASCII buffer for all reads, one
-    gather of every read's first ``length`` bases.  Returns (codes u8
-    [R, length], lengths i32 [R]) with lengths clipped to ``length``.
+    The native host library's ``encode_batch`` (``native/rbt_native.cpp``)
+    packs every read in one pass; rows past ``len(seqs)`` up to ``batch``
+    are zero, as in the JAX wrapper.  Returns (codes u8 [R, length],
+    lengths i32 [R]) with lengths clipped to ``length``; without padding
+    both arrays are read-only views of the library's buffers.
     """
+    R = batch if batch is not None else len(seqs)
+    buf, lens_buf = load_native().module.encode_batch(seqs, length)
+    CALLS["encode_batch"] += 1
+    enc = np.frombuffer(buf, dtype=np.uint8).reshape(len(seqs), length)
+    enc_lens = np.frombuffer(lens_buf, dtype=np.int32)
+    if R == len(seqs):
+        return enc, enc_lens
+    out = np.zeros((R, length), dtype=np.uint8)
+    lens = np.zeros(R, dtype=np.int32)
+    out[: len(seqs)] = enc
+    lens[: len(seqs)] = enc_lens
+    return out, lens
+
+
+def encode_batch_np(seqs: list[str], length: int, batch: int | None = None):
+    """``encode_batch``'s plain version, in numpy (for the tests and the
+    smoke run's comparison): one ASCII buffer for all reads, one gather
+    of every read's first ``length`` bases."""
     R = batch if batch is not None else len(seqs)
     out = np.zeros((R, length), dtype=np.uint8)
     lens = np.zeros(R, dtype=np.int32)
@@ -249,7 +272,7 @@ class ClassifyEngine:
             if stack is None:
                 maxima[kind] = (None, None)
                 continue
-            cnt = stack.counts(torch.from_numpy(frags), torch.from_numpy(lens))
+            cnt = stack.counts(host_tensor(frags), host_tensor(lens))
             maxima[kind] = tuple(
                 stack.max_counts(cnt, torch.from_numpy(
                     ci_and_threshold_batch(lens, stack.kmer_size, rate, self.significance).astype(np.int32)

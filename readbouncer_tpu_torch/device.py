@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "upload"]
+__all__ = ["host_tensor", "resolve_device", "upload"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -30,10 +30,22 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor: without a copy, unless the array is
+    read-only (as the native encode's buffers are), which a tensor must
+    not alias."""
+    arr = np.ascontiguousarray(arr)
+    return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+
+
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array as a tensor on ``device``: on CUDA through pinned
-    memory, copied without blocking the host; on the CPU without a copy."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    """A host array as a tensor on ``device``: on CUDA copied once into
+    pinned memory and from there without blocking the host; on the CPU
+    as ``host_tensor`` gives it."""
+    arr = np.asarray(arr)
+    if device.type != "cuda":
+        return host_tensor(arr)
+    dtype = torch.from_numpy(np.empty(0, dtype=arr.dtype)).dtype
+    pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    pinned.numpy()[...] = arr
+    return pinned.to(device, non_blocking=True)

@@ -1,13 +1,28 @@
 """FASTA/FASTQ streaming reader and FASTA writer.
 
-A copy of readbouncer_tpu/fastio/fasta.py's pure-Python reader and
-writer (the port imports nothing of the JAX package).  Mirrors the
-reference's seqan-based record I/O surface (seqan::readRecords at
-src/IBF/IBFBuild.cpp:52, seqan::readRecord at src/main/classify.hpp:237,
-seqan::writeRecord at src/main/classify.hpp:301).
+Mirrors the reference's seqan-based record I/O surface
+(seqan::readRecords at src/IBF/IBFBuild.cpp:52, seqan::readRecord at
+src/main/classify.hpp:237, seqan::writeRecord at
+src/main/classify.hpp:301).  ``read_records`` streams records through
+the native host library (``readbouncer_tpu_torch/native``, the port's
+copy of the JAX package's C++ reader), as the JAX package does wherever
+its extension is built.  The pure-Python parser (``_iter_fasta``,
+``_iter_fastq``, ``read_records_py``) is a copy of the JAX package's
+fallback and stays as the plain version the tests compare with.
 
-Record ids are truncated at the first space when requested, matching the
-build path's seqid handling (reference: src/IBF/IBFBuild.cpp:77).
+The native reader's rules, which differ from the Python parser at the
+edges (``native/rbt_native.cpp``):
+
+* with ``first_word_id`` an id is cut at the first space **or tab**
+  (the Python parser cuts at a space only; reference seqid handling:
+  src/IBF/IBFBuild.cpp:77);
+* gzip is recognised by the file's content, whatever its suffix (zlib
+  reads plain files unchanged); the Python parser decompresses only a
+  ``.gz`` file;
+* the format is FASTQ when the first byte is ``@``, whatever the suffix;
+  the Python parser also takes ``.fastq`` / ``.fq`` as FASTQ;
+* blank lines inside a FASTA record are skipped by both; a malformed
+  FASTQ record raises ``ValueError`` in both.
 """
 
 from __future__ import annotations
@@ -17,7 +32,9 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
 
-__all__ = ["SeqRecord", "read_records", "FastaWriter"]
+from readbouncer_tpu_torch.native import CALLS, load_native
+
+__all__ = ["SeqRecord", "read_records", "read_records_py", "FastaWriter"]
 
 
 @dataclass
@@ -72,7 +89,17 @@ _FASTQ_SUFFIXES = {".fastq", ".fq"}
 
 
 def read_records(path: str | Path, first_word_id: bool = False) -> Iterator[SeqRecord]:
-    """Stream records from a FASTA/FASTQ file (gzip supported by suffix)."""
+    """Stream records from a FASTA/FASTQ file (plain or gzip), one at a
+    time, through the native reader."""
+    reader = load_native().module.read_records(str(path), first_word_id)
+    CALLS["read_records"] += 1
+    for rec_id, seq in reader:
+        yield SeqRecord(rec_id, seq.decode("ascii"))
+
+
+def read_records_py(path: str | Path, first_word_id: bool = False) -> Iterator[SeqRecord]:
+    """``read_records``' plain version: the JAX package's Python parser
+    (gzip supported by suffix)."""
     path = Path(path)
     suffixes = [s.lower() for s in path.suffixes]
     is_fastq = any(s in _FASTQ_SUFFIXES for s in suffixes)

@@ -1,18 +1,28 @@
-"""IBF construction on the device: references -> fragments -> bit matrix.
+"""IBF construction: references -> fragments -> bit matrix.
 
 The torch counterpart of readbouncer_tpu/ibf/build.py, with the same
 semantics (N-run removal with the reference's final-segment truncation,
 fragment bounds with a k-1 overlap, declared bin count
 ``len // fragment_length + 1`` per sequence, forward k-mers only;
-reference: src/IBF/IBFBuild.cpp:16-204,223-321,404-521).  The JAX
-package's hot loop is a C++ scatter-OR (or numpy); here every window of
-a sequence is hashed at once on the device and its bits set in a bool
-[rows, bins] table, which is packed to uint32 words and ORed into the
-filter at the end.  The table takes one byte per bit of the bins it
-covers: 0.71 GB for one 512-bin bench filter (1,236,269 rows x 576
-padded bins).  ``update_ibf`` covers only the words from the first new
-bin on.  ``insert_sequence`` is the JAX package's numpy scatter-OR of
-one fragment, the host oracle of the device build.
+reference: src/IBF/IBFBuild.cpp:16-204,223-321,404-521).  The insert
+has two routes:
+
+* on a CPU device (``use_native`` None or True): the JAX package's
+  native route, the host library's ``insert_fragments``
+  (``readbouncer_tpu_torch/native``): rbt1 / rbt2 hash rows and an
+  atomic scatter-OR in C++, fragments spread over ``params.threads``
+  worker threads;
+* on the card (``use_native`` None or False): every window of a
+  sequence is hashed at once on the device and its bits set in a bool
+  [rows, bins] table, which is packed to uint32 words and ORed into the
+  filter at the end.  The table takes one byte per bit of the bins it
+  covers: 0.71 GB for one 512-bin bench filter (1,236,269 rows x 576
+  padded bins).  ``use_native=False`` on the CPU runs this route with
+  torch's CPU kernels, for the tests.
+
+``update_ibf`` covers only the words from the first new bin on.
+``insert_sequence`` is the JAX package's numpy scatter-OR of one
+fragment, the host oracle of both routes.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from readbouncer_tpu_torch.ibf.hashing import POW5, encode_bases, hash_rows_np, 
 from readbouncer_tpu_torch.ibf.params import IBFParams, optimal_bins
 from readbouncer_tpu_torch.ibf.query import hash_rows_all
 from readbouncer_tpu_torch.ibf.storage import IBFData
+from readbouncer_tpu_torch.native import CALLS, load_native
 
 __all__ = [
     "BuildStats", "cut_out_nnns", "fragment_bounds", "insert_sequence", "build_ibf_records", "build_ibf",
@@ -175,15 +186,50 @@ def _file_records(reference_files: Sequence[str | Path]) -> Iterable[tuple[str, 
             yield rec.id, rec.seq
 
 
-def _insert_all(
-    ibf: IBFData, parsed: _ParsedRefs, params: IBFParams, stats: BuildStats, bin_offset: int, dev
-) -> None:
-    """Insert every fragment of ``parsed`` from bin ``bin_offset`` on.
+def _insert_native(ibf: IBFData, seq: str, bounds, first_bin: int, params: IBFParams) -> None:
+    """Set the bits of every fragment's forward k-mers with the host
+    library's ``insert_fragments``; fragment i goes to bin
+    ``first_bin + i`` (readbouncer_tpu/ibf/build.py:211-226)."""
+    lib = load_native().module
+    frags = np.array([(s, e, first_bin + i) for i, (s, e) in enumerate(bounds)], dtype=np.int64)
+    lib.insert_fragments(
+        ibf.bits.reshape(-1),
+        ibf.rows,
+        ibf.words,
+        lib.encode(seq),
+        frags.tobytes(),
+        params.kmer_size,
+        params.hash_functions,
+        params.threads,
+        1 if ibf.scheme == "rbt2" else 0,
+    )
+    CALLS["insert_fragments"] += 1
 
-    The bool table covers the words from ``bin_offset // 32`` to the end,
-    so new bins go into the filter's existing words at a bit offset."""
+
+def _insert_all(
+    ibf: IBFData,
+    parsed: _ParsedRefs,
+    params: IBFParams,
+    stats: BuildStats,
+    bin_offset: int,
+    dev,
+    use_native: bool | None = None,
+) -> None:
+    """Insert every fragment of ``parsed`` from bin ``bin_offset`` on,
+    natively on the host (``use_native``; default: on a CPU device) or
+    with torch on ``dev``.
+
+    The torch route's bool table covers the words from ``bin_offset // 32``
+    to the end, so new bins go into the filter's existing words at a bit
+    offset."""
+    if use_native is None:
+        use_native = dev.type == "cpu"
+    if use_native:
+        ibf.bits = np.ascontiguousarray(ibf.bits)  # insert_fragments writes through a flat view
     w0 = bin_offset // 32
-    table = torch.zeros((ibf.rows, ibf.padded_bins - 32 * w0), dtype=torch.bool, device=dev)
+    table = None if use_native else torch.zeros(
+        (ibf.rows, ibf.padded_bins - 32 * w0), dtype=torch.bool, device=dev
+    )
     bin_id = bin_offset
     ranges: list[tuple[int, int]] = (
         list(map(tuple, ibf.bin_ranges.tolist())) if ibf.bin_ranges is not None else []
@@ -194,13 +240,16 @@ def _insert_all(
             raise BinCapacityError(
                 f"fragment count exceeded padded bin capacity ({ibf.padded_bins})"
             )
-        if bounds:
+        if bounds and use_native:
+            _insert_native(ibf, seq, bounds, bin_id, params)
+        elif bounds:
             bases = torch.from_numpy(encode_bases(seq)).to(dev)
             _insert(table, bases, bounds, bin_id - 32 * w0, params, ibf.rows)
         ibf.bin_seqids += [seqid] * len(bounds)
         ranges += bounds
         bin_id += len(bounds)
-    ibf.bits[:, w0:] |= _pack_words(table)
+    if table is not None:
+        ibf.bits[:, w0:] |= _pack_words(table)
     ibf.bin_ranges = np.array(ranges, dtype=np.uint64) if ranges else None
     stats.total_bins_inserted = bin_id - bin_offset
 
@@ -210,8 +259,10 @@ def build_ibf_records(
     params: IBFParams,
     name: str = "",
     device=None,
+    use_native: bool | None = None,
 ) -> tuple[IBFData, BuildStats]:
-    """Build a filter from (seqid, sequence) records on ``device``."""
+    """Build a filter from (seqid, sequence) records on ``device``
+    (``use_native``: see ``_insert_all``)."""
     params.validate()
     dev = resolve_device(device)
     stats = BuildStats()
@@ -228,7 +279,7 @@ def build_ibf_records(
         name=name,
         scheme=params.hash_scheme,
     )
-    _insert_all(ibf, parsed, params, stats, 0, dev)
+    _insert_all(ibf, parsed, params, stats, 0, dev, use_native)
     stats.build_seconds = time.monotonic() - t0
     return ibf, stats
 
@@ -238,10 +289,13 @@ def build_ibf(
     params: IBFParams,
     name: str = "",
     device=None,
+    use_native: bool | None = None,
 ) -> tuple[IBFData, BuildStats]:
     """Build a filter from FASTA/FASTQ files on ``device`` (reference:
     IBF::create_filter, src/IBF/IBFBuild.cpp:421-521)."""
-    return build_ibf_records(_file_records(reference_files), params, name=name, device=device)
+    return build_ibf_records(
+        _file_records(reference_files), params, name=name, device=device, use_native=use_native
+    )
 
 
 def update_ibf(
@@ -249,6 +303,7 @@ def update_ibf(
     reference_files: Sequence[str | Path],
     params: IBFParams,
     device=None,
+    use_native: bool | None = None,
 ) -> tuple[IBFData, BuildStats]:
     """Append new references to an existing filter, in place.
 
@@ -268,7 +323,7 @@ def update_ibf(
     if new_total > old_bins:
         ibf.resize_bins(new_total)
         stats.new_bins = stats.total_bins_declared
-    _insert_all(ibf, parsed, params, stats, old_bins, dev)
+    _insert_all(ibf, parsed, params, stats, old_bins, dev, use_native)
     stats.total_bins_declared = new_total
     stats.filter_size_bits = ibf.total_bits
     stats.build_seconds = time.monotonic() - t0

@@ -190,9 +190,9 @@ class IBFParams:
     # without beating rbt1's fused h-gather.  See ibf.hashing module doc
     # and docs/PERF_NOTES.md.
     hash_scheme: str = "rbt1"
-    # build worker threads of the JAX package's native insert; 0 = all
-    # available cores.  The port's build runs on the device and does not
-    # read it.  Reference analog: IBF_Params.threads
+    # worker threads of the native insert (ibf/build.py's host route,
+    # insert_fragments); 0 = all available cores.  The card's route does
+    # not read it.  Reference analog: IBF_Params.threads
     # (src/IBF/IBFConfig.hpp:98-105).
     build_threads: int = 0
 

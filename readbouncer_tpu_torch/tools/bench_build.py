@@ -5,8 +5,11 @@ Counterpart of scripts/bench_build.py, with its genome and flags: a
 drawn from ``default_rng(7)``, written to a FASTA file and built
 ``--runs`` times (k=13, h=3, rbt1) through the file-level
 ``ibf/build.py::build_ibf``.  The JAX script builds on the host (its
-native insert workers); the port's build parses the FASTA on the host
-and hashes and inserts on the card.  Each run ends in a synchronise.
+native insert workers).  The port's build parses the FASTA on the host
+(the native reader) and, on the card, hashes and inserts there;
+``--device cpu`` measures the same native insert as the JAX script
+(``insert_fragments`` over ``IBFParams.threads`` workers).  Each run
+ends in a synchronise.
 The last line is one JSON object:
 
     {"metric": "ibf_build_mbases_per_sec", "value", "unit", "genome_mb",

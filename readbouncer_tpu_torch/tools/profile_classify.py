@@ -5,7 +5,8 @@ Counterpart of scripts/profile_classify.py: bench's four filters
 bench draws them (``default_rng(42)``), one full warm-up, then one job
 split into its serial stages, each ended by a synchronise of the card:
 
-    host encode            encode_batch of every read
+    host encode            encode_batch of every read (the native host
+                           library's encode_batch, native/rbt_native.cpp)
     H2D phase-A reads      upload of chunk 0 of every read (uint8)
     submit                 encode + upload + launch of phase A (host)
     phase A on the device  the wait for phase A
@@ -94,7 +95,7 @@ def run_profile_classify(
     n = len(seqs)
     print(f"device               : {card(dev)}")
     print(f"reads                : {n} (device batch {batch}, reads uploaded as unpacked uint8)")
-    print(f"host encode          : {ms['host_encode']:8.1f} ms")
+    print(f"host encode (native) : {ms['host_encode']:8.1f} ms")
     print("host pack (phase A)  : no counterpart: the port uploads unpacked uint8 (no pack4_np)")
     print(f"H2D phase-A reads    : {ms['h2d_phase_a']:8.1f} ms ({reads_a.nbytes / 1e6:.1f} MB synced)")
     print(f"submit (enc+put+launch A): {ms['submit']:8.1f} ms")

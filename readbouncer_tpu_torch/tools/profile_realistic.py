@@ -34,7 +34,7 @@ import torch
 
 from readbouncer_tpu_torch.classify.engine import encode_batch
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
-from readbouncer_tpu_torch.device import resolve_device
+from readbouncer_tpu_torch.device import host_tensor, resolve_device
 from readbouncer_tpu_torch.ibf.build import build_ibf
 from readbouncer_tpu_torch.ibf.params import IBFParams
 from readbouncer_tpu_torch.ibf.query import FilterStack, counts, hash_rows_all, kmer_codes
@@ -128,12 +128,13 @@ def main(argv: list[str] | None = None) -> int:
     encode_batch(seqs, cl)
     print(f"host encode [{R},{cl}]: {(time.perf_counter() - t0) * 1e3:.1f} ms")
 
-    dt = timeit(lambda: torch.from_numpy(reads).to(dev), device=dev, n=5)
+    host_reads = host_tensor(reads)  # the native encode's buffer is read-only
+    dt = timeit(lambda: host_reads.to(dev), device=dev, n=5)
     print(f"H2D transfer {reads.nbytes / 1e6:.1f}MB: med={dt * 1e3:.3f} ms {where}")
 
     k, h, rows, scheme = stack.kmer_size, stack.hash_functions, stack.rows, stack.scheme
-    dreads = torch.from_numpy(reads).to(dev)
-    dlens = torch.from_numpy(lens).to(dev)
+    dreads = host_reads.to(dev)
+    dlens = host_tensor(lens).to(dev)
 
     def f_counts():
         return counts(stack.bits, dreads, dlens, k=k, h=h, rows=rows, scheme=scheme)

@@ -4,7 +4,9 @@
   ``readbouncer_tpu`` (that package and its submodules, not
   ``readbouncer_tpu_torch``), every module of the port and
   ``chip_smoke`` import, and a tiny classify and a tiny live run with the
-  GRU caller run with ``device="cpu"``.
+  GRU caller run with ``device="cpu"``, through the port's own native
+  host library (``readbouncer_tpu_torch.native``, loaded under the hook;
+  never ``readbouncer_tpu._native``).
 * Without a CUDA card ``chip_smoke.py`` exits non-zero without printing
   a result, also when it is alone in a directory.
 
@@ -71,6 +73,10 @@ BLOCKED_RUN = textwrap.dedent(
         sampler = AdaptiveSampler(src, caller, LiveClassifier([ibf], [], cfg, device="cpu"), td, cfg)
         stats = sampler.run(max_ticks=20)
     assert (stats.stop_received, stats.unblocked) == (1, 0), stats.report()
+    # the native host library the runs above went through is the port's own
+    from readbouncer_tpu_torch.native import CALLS, MODULE, load_native
+    assert all(CALLS[k] > 0 for k in ("encode_batch", "insert_fragments")), CALLS
+    assert sys.modules[MODULE] is load_native().module and MODULE.startswith("readbouncer_tpu_torch.")
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ISOLATED", len(names))
