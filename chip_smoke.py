@@ -74,14 +74,26 @@ Phases:
             run of the pipelined classify, then 3 timed runs, its JSON
             line printed): exactly 20,493 of 40,960 reads classified in
             every run, every run deciding as the warm-up, both kernel
-            counters and the native encode_batch's calls > 0 over the
-            timed runs, 256 reads' decisions equal
+            counters and the native encode_batch's and pack_codes' calls
+            > 0 over the timed runs, 256 reads' decisions equal
             to the numpy oracle, and the first 2,048 reads' decisions,
             best targets and attempts equal to the chunk-wave oracle's
             (``ClassifyEngine.classify_sequences_waves``);
    profile — host encode time and one host batch under torch.profiler
             (device busy share, top kernels and the port's own);
             informational;
+   upload — the upload path on the same reads and filters: pack_codes
+            (2-bit chunk 0, base-243 chunks 1-4) bit-equal to numpy
+            pack4_np / pack5_np on one 16,384-read job, both timed; the
+            transfer probe; then classify_sequences_pipelined under the
+            defaults (packing auto, serial), packing "base243" and
+            overlap_pool (the indexed phase B, gathered on the card), and
+            classify_read_files with transfer_mode "auto" over a FASTA of
+            the reads: 20,493 / 40,960 in every run of every route, decisions
+            (and the auto route's FASTAs) equal to the main phase's, K1, K2,
+            encode_batch and pack_codes counted from 0 over each route;
+            per route the H2D bytes, submit and dispatch-B host ms of one
+            16,384-read job (median of 3) and reads/s (median of 3);
 6. cli    — `python -m readbouncer_tpu_torch --config` on 2,048 of the
             reads: output FASTAs and counters equal to the in-process run,
             over the .ribf filters and again over the genome FASTAs
@@ -110,8 +122,9 @@ Phases:
             the Oracle caller; counters from the first tick on: 1,024 reads unblocked
             (every genome-3 read) and 1,024 stop_receiving (every genome-0
             read), nothing unclassified, no failed action, the K1, K2 (and
-            with the GRU, K3) counters and the native encode_batch's
-            calls risen; tick latencies;
+            with the GRU, K3) counters and the native encode_batch's and
+            pack_codes' calls risen (reads go up base-243 packed); tick
+            latencies;
 9. cli live — `python -m readbouncer_tpu_torch` usage target (DeepNano
             caller, synth48) on a small replay FASTA: output FASTAs,
             decision CSV (less its timing column) and counters equal to
@@ -212,6 +225,7 @@ import ctypes
 import gzip
 import hashlib
 import json
+import logging
 import math
 import os
 import re
@@ -230,8 +244,12 @@ import numpy as np
 import torch
 
 from readbouncer_tpu_torch import graft_entry
-from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch, encode_batch_np
-from readbouncer_tpu_torch.classify.fused import LiveFused, plan_stacks, stack_dual_max, threshold_table
+from readbouncer_tpu_torch.classify.engine import (
+    ClassifyEngine, choose_transfer_mode, classify_read_files, encode_batch, encode_batch_np, pack_codes,
+)
+from readbouncer_tpu_torch.classify.fused import (
+    LiveFused, pack4_np, pack5_np, plan_stacks, stack_dual_max, threshold_table,
+)
 from readbouncer_tpu_torch.classify.math import ci_and_threshold_batch
 from readbouncer_tpu_torch.classify.policy import classify_decisions
 from readbouncer_tpu_torch.config import ConfigReader
@@ -323,6 +341,10 @@ K3_LOGITS_GATE = 1e-4  # the kernel forward's logits, max abs from the plain for
 PROTO_REPS = 3  # scripts/proto_counts_layout.py's timed calls per variant
 GRAFT_DRYRUN_DEVICES = 4
 HOST_REPS = 5  # timed runs of each encode in the host phase (median)
+# the upload phase: ClassifyEngine options of each route run through
+# classify_sequences_pipelined; the "auto" route runs classify_read_files
+UPLOAD_ROUTES = {"defaults": {}, "base243": {"packing": "base243"}, "overlap": {"overlap_pool": True}}
+UPLOAD_REPS = 3  # timed runs of each route, and timed jobs (median)
 
 
 class SmokeFailure(RuntimeError):
@@ -799,14 +821,16 @@ def phase_main(dev, engine: ClassifyEngine, filters, seqs: list[str]):
         f"main: tools.bench classified {counts} of {len(seqs)} in the warm-up and {len(line['run_seconds'])} timed runs "
         f"({', '.join(f'{t:.3f}' for t in line['run_seconds'])} s), median {line['value']} reads/s on "
         f"{line['device']}; launches over the timed runs K1={launches['K1']} K2={launches['K2']}, native "
-        f"encode_batch calls {native.get('encode_batch', 0)}; attempts "
+        f"encode_batch calls {native.get('encode_batch', 0)}, pack_codes calls {native.get('pack_codes', 0)} "
+        f"(transfer probe {line['transfer_probe_ms']:.3f} ms -> {line['transfer_mode']}); attempts "
         f"histogram {np.bincount(attempts).tolist()}"
     )
     check(all(n == EXPECT_CLASSIFIED for n in counts), f"classified {counts}, expected {EXPECT_CLASSIFIED}")
     check(all(np.array_equal(c, classified) for c in out["classified_by_run"]),
           "a run decided otherwise than the warm-up")
     check(launches["K1"] > 0 and launches["K2"] > 0, f"kernel counters {launches}")
-    check(native.get("encode_batch", 0) > 0, f"main: the timed runs did not encode natively: {native}")
+    check(native.get("encode_batch", 0) > 0 and native.get("pack_codes", 0) > 0,
+          f"main: the timed runs did not encode and pack natively: {native}")
     check(((best >= 0) == classified).all(), "best target set exactly for classified reads")
     picks = np.linspace(0, len(seqs) - 1, ORACLE_READS).astype(int)
     t1 = time.monotonic()
@@ -823,6 +847,155 @@ def phase_main(dev, engine: ClassifyEngine, filters, seqs: list[str]):
     say(f"  chunk-wave oracle (classify_sequences_waves) on the first {WAVES_READS} reads: classified, best "
         f"and attempts equal ({int(waves[0].sum())} classified, {time.monotonic() - t1:.1f} s)")
     return classified, best, attempts, launches, line
+
+
+class _LogLines(logging.Handler):
+    """The messages of one named logger at INFO and up, while entered."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.lines, self.logger = [], logging.getLogger(name)
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def _job_stages(engine: ClassifyEngine, job_seqs: list[str]) -> dict:
+    """One host batch through ``engine``, UPLOAD_REPS times: submit's and
+    dispatch B's host ms (median; the card drained before each, so
+    dispatch B's pending fetch does not wait for phase A), the bytes
+    uploaded for the job, its packing and whether phase B took the indexed
+    route."""
+    submit, dispatch = [], []
+    for _ in range(UPLOAD_REPS):
+        torch.cuda.synchronize()
+        before = engine._io.h2d_bytes
+        t0 = time.perf_counter()
+        job = engine.classify_submit(job_seqs)
+        submit.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        job.dispatch_b()
+        dispatch.append((time.perf_counter() - t0) * 1e3)
+        job.finish()
+        h2d = engine._io.h2d_bytes - before
+    indexed = job.dev_pool is not None and bool(job.futs_b)
+    return dict(submit_ms=float(np.median(submit)), dispatch_b_ms=float(np.median(dispatch)), h2d_bytes=h2d,
+                packing=job.packing, indexed=indexed)
+
+
+def _route_gates(name: str, launches: dict, native: dict) -> None:
+    check(launches["K1"] > 0 and launches["K2"] > 0, f"upload {name}: kernel counters {launches}")
+    check(native.get("pack_codes", 0) > 0 and native.get("encode_batch", 0) > 0,
+          f"upload {name}: the route did not pack and encode natively: {native}")
+
+
+def phase_upload(dev, filters, seqs: list[str], classified, best, attempts) -> dict:
+    """The upload path on bench's reads and the resident filters:
+    pack_codes against numpy pack4_np / pack5_np on one HOST_BATCH job
+    (bit-equal, timed), the transfer probe, then the routes of
+    UPLOAD_ROUTES through classify_sequences_pipelined and transfer_mode
+    "auto" through classify_read_files.  Every route classifies
+    EXPECT_CLASSIFIED reads and decides as the main phase did; each one's
+    counts are reset before it and read after it.  Per route: H2D bytes,
+    submit and dispatch-B host ms of one HOST_BATCH job, reads/s."""
+    t_phase = time.monotonic()
+    out = {"routes": {}}
+    job_seqs = seqs[:HOST_BATCH]
+    engine = ClassifyEngine(filters[:3], filters[3:], error_rate=ERROR_RATE, batch_size=BATCH, device=dev)
+    cl, C = engine.chunk_length, engine.max_chunks
+    enc, _ = encode_batch(job_seqs, cl * C)
+    cases = (("2bit", enc, cl, lambda: pack4_np(enc[:, :cl])), ("base243", enc[:, cl:], None,
+                                                                  lambda: pack5_np(enc[:, cl:])))
+    out["pack_ms"] = {}
+    for packing, codes, width, plain in cases:
+        got, has_n = pack_codes(codes, packing, width)
+        check(np.array_equal(got, plain()) and not has_n,
+              f"upload: pack_codes {packing} differs from the numpy plain version on one {len(job_seqs)}-read job")
+        out["pack_ms"][packing] = {"native": _median_ms(lambda: pack_codes(codes, packing, width)),
+                                   "numpy": _median_ms(plain), "bytes": got.nbytes}
+        say(f"upload: pack_codes {packing} of one {len(job_seqs)}-read job ({codes.shape[0]} x "
+            f"{width or codes.shape[1]} codes -> {got.nbytes} B) bit-equal to numpy; median of {HOST_REPS}: native "
+            f"{out['pack_ms'][packing]['native']:.2f} ms, numpy {out['pack_ms'][packing]['numpy']:.2f} ms")
+    out["probe_ms"] = [engine.probe_transfer_seconds() * 1e3 for _ in range(UPLOAD_REPS)]
+    say(f"upload: transfer probe (0.5 MB upload + 1-element fetch), {UPLOAD_REPS} calls: "
+        + ", ".join(f"{t:.3f}" for t in out["probe_ms"]) + " ms")
+    want = (classified, best, attempts)
+
+    def route_result(name: str, engine: ClassifyEngine, times: list, launches: dict, native: dict) -> None:
+        stages = _job_stages(engine, job_seqs)
+        r = dict(reads_per_s=len(seqs) / float(np.median(times)), run_seconds=times, launches=launches,
+                 native_calls=native, **stages)
+        out["routes"][name] = r
+        say(f"upload {name}: {EXPECT_CLASSIFIED}/{len(seqs)} in every run, decisions equal to the main phase's; "
+            f"{r['reads_per_s']:.1f} reads/s (median of {UPLOAD_REPS}); one {len(job_seqs)}-read job: packing "
+            f"{r['packing']}, H2D {r['h2d_bytes']} B, submit {r['submit_ms']:.2f} ms, dispatch B "
+            f"{r['dispatch_b_ms']:.2f} ms (host, median of {UPLOAD_REPS}), indexed phase B {r['indexed']}; "
+            f"launches K1={launches['K1']} K2={launches['K2']}, pack_codes calls {native.get('pack_codes', 0)}")
+
+    for name, opts in UPLOAD_ROUTES.items():
+        engine = ClassifyEngine(filters[:3], filters[3:], error_rate=ERROR_RATE, batch_size=BATCH, device=dev,
+                                **opts)
+        engine.classify_sequences_pipelined(seqs)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counters()
+        times = []
+        for _ in range(UPLOAD_REPS):
+            t0 = time.perf_counter()
+            got = engine.classify_sequences_pipelined(seqs, host_batch_reads=HOST_BATCH, depth=2)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(int(got[0].sum()) == EXPECT_CLASSIFIED, f"upload {name}: classified {int(got[0].sum())}")
+            check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+                  f"upload {name}: decisions differ from the main phase's")
+        launches, native = _counters(), dict(NATIVE_CALLS)
+        _route_gates(name, launches, native)
+        route_result(name, engine, times, launches, native)
+    check(out["routes"]["overlap"]["indexed"] and not out["routes"]["defaults"]["indexed"],
+          "upload: the overlap route did not take the indexed phase B (or the defaults did)")
+    check(out["routes"]["base243"]["packing"] == "base243" and out["routes"]["defaults"]["packing"] == "2bit",
+          "upload: packing not resolved as set")
+
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        reads = td / "reads.fasta"
+        reads.write_text("".join(f">r{i}\n{q}\n" for i, q in enumerate(seqs)))
+        _reset_counters()
+        times = []
+        for rep in range(UPLOAD_REPS):
+            with _LogLines("ClassifyLog") as log:
+                t0 = time.perf_counter()
+                res = classify_read_files([reads], filters[:3], filters[3:], ERROR_RATE, td / f"out{rep}",
+                                          batch_size=BATCH, verbose=False, transfer_mode="auto", device=dev)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            check(res.found == EXPECT_CLASSIFIED, f"upload auto: classify_read_files found {res.found}")
+            for t, f in enumerate(filters[:3]):
+                text = "".join(f">r{i}\n{seqs[i]}\n" for i in np.flatnonzero(classified & (best == t)))
+                check((td / f"out{rep}" / f"{f.name}.fasta").read_text() == text,
+                      f"upload auto: {f.name}.fasta differs from the main phase's decisions")
+        launches, native = _counters(), dict(NATIVE_CALLS)
+        _route_gates("auto", launches, native)
+        decided = [m for m in log.lines if m.startswith("transfer_mode=auto")]
+        check(len(decided) == 1, f"upload auto: no transfer_mode decision logged: {log.lines[:3]}")
+        engine = ClassifyEngine(filters[:3], filters[3:], error_rate=ERROR_RATE, batch_size=BATCH, device=dev)
+        engine.overlap_pool = choose_transfer_mode("auto", engine)
+        route_result("auto", engine, times, launches, native)
+        out["routes"]["auto"]["log"] = decided[0]
+        out["routes"]["auto"]["congested"] = any("congested" in m for m in log.lines)
+        say(f"upload auto: classify_read_files (FASTA parse and write included) logged {decided[0]!r}")
+    out["seconds"] = time.monotonic() - t_phase
+    return out
 
 
 def device_rows(prof) -> list[tuple[float, int, str]]:
@@ -1296,6 +1469,8 @@ def phase_live(dev, filters, workload, caller_name: str, mesh: Mesh | None = Non
     needed = ("K1", "K2", "K3") if gru else ("K1", "K2")
     check(all(launches[k] > 0 for k in needed), f"live {caller_name}: kernel counters {launches}")
     check(NATIVE_CALLS["encode_batch"] > 0, f"live {caller_name}: no native encode_batch call")
+    if mesh is None:  # LiveClassifier ships base-243 reads (the sharded one, as JAX's, does not)
+        check(NATIVE_CALLS["pack_codes"] > 0, f"live {caller_name}: no native pack_codes call")
     if mesh is not None:
         cells = int((mesh.ranks == distributed.process_index()).sum())
         check(launches["K1"] == launches["K2"] and launches["K1"] % cells == 0,
@@ -2181,6 +2356,12 @@ def run(argv: list[str], cache: Path) -> int:
     phase_profile(engine, seqs)
     say(f"profile phase: {time.monotonic() - t0:.2f} s")
 
+    upload = phase_upload(dev, filters, seqs, classified, best, attempts)
+    say(f"upload phase: {upload['seconds']:.2f} s")
+    say("upload: " + json.dumps({**{k: v for k, v in upload.items() if k != "routes"},
+                                 "routes": {r: {k: v for k, v in d.items() if k != "launches"}
+                                            for r, d in upload["routes"].items()}}))
+
     with tempfile.TemporaryDirectory() as filter_dir:
         t0 = time.monotonic()
         filter_dir = Path(filter_dir)
@@ -2256,7 +2437,8 @@ def run(argv: list[str], cache: Path) -> int:
     say(f"mesh across processes phase: {mesh['seconds']:.2f} s")
     say("mesh across processes: " + json.dumps(mesh))
 
-    paths_launched = {"classify": launches, "live_synth48": live["synth48"]["launches"],
+    paths_launched = {"classify": launches, **{f"upload_{r}": d["launches"] for r, d in upload["routes"].items()},
+                      "live_synth48": live["synth48"]["launches"],
                       "live_oracle": live["oracle"]["launches"],
                       **{f"sharded_{m}": sharded[m]["launches"] for m in SHARD_MESHES},
                       f"live_synth48_sharded_{LIVE_MESH}": live["sharded"]["launches"],

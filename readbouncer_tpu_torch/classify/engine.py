@@ -18,11 +18,15 @@ Same structure and the same decisions as the JAX engine:
   read's full sequence goes to its best target's FASTA, an unclassified
   one to ``unclassified.fasta`` (reference: src/main/classify.hpp:142-380).
 
-Host-device traffic uses pinned host tensors and ``non_blocking``
-copies of the encoded uint8 reads, unpacked.  ``packing``,
-``transfer_mode`` and ``overlap_pool`` are accepted with the JAX engine's
-values and ignored: there they shrink or overlap uploads over a slow
-host link, and no choice of them changes a decision.
+The upload path is the JAX engine's: each phase ships one packed pool
+(2 bits a base, or base 243 where a host batch holds an N; ``packing``
+"auto" | "2bit" | "base243"), packed by the native host library's
+``pack_codes`` and unpacked on the device; with ``overlap_pool`` submit
+also uploads a base-243 pool of every read's later chunks and phase B
+sends only row indices (``transfer_mode`` "overlap", or "auto" decided
+by a timed upload, ``choose_transfer_mode``).  Host tensors are pinned
+and copies ``non_blocking``.  Unlike the JAX engine, pools are not padded
+to power-of-two sizes: eager PyTorch compiles nothing per shape.
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ import torch
 
 from readbouncer_tpu_torch.classify.fused import (
     FusedClassifier,
-    pack_results,
+    IndexedClassifier,
+    PackedClassifier,
+    packed_bytes_per_read,
     plan_stacks,
     unpack_results_np,
 )
@@ -54,10 +60,17 @@ from readbouncer_tpu_torch.native import CALLS, load_native
 __all__ = [
     "ClassifyResults",
     "ClassifyEngine",
+    "choose_transfer_mode",
     "classify_read_files",
     "encode_batch",
     "encode_batch_np",
+    "pack_codes",
 ]
+
+# transfer_mode="auto": an upload of PROBE_BYTES that takes this long or
+# longer means a congested link (the JAX engine's threshold)
+PROBE_BYTES = 1 << 19
+CONGESTED_SECONDS = 0.08
 
 
 @dataclass
@@ -138,14 +151,30 @@ def encode_batch_np(seqs: list[str], length: int, batch: int | None = None):
     return out, lens
 
 
+def pack_codes(codes: np.ndarray, packing: str, width: int | None = None) -> tuple[np.ndarray, bool]:
+    """Pack the first ``width`` columns (all by default) of a [R, L]
+    uint8 code array, ``packing`` "2bit" (``pack4_np``) or "base243"
+    (``pack5_np``), in the native host library (``native/rbt_native.cpp``),
+    which reads ``codes`` in place (read-only views and column slices
+    included).  Returns (packed u8 [R, P], whether any code of ``codes``,
+    packed or not, exceeds 3: an N)."""
+    width = codes.shape[1] if width is None else width
+    buf, has_n = load_native().module.pack_codes(codes, packing, width)
+    CALLS["pack_codes"] += 1
+    return np.frombuffer(buf, dtype=np.uint8).reshape(codes.shape[0], packed_bytes_per_read(width, packing)), has_n
+
+
 class _Transfer:
-    """Host <-> device copies: pinned host memory, non_blocking on CUDA."""
+    """Host <-> device copies: pinned host memory, non_blocking on CUDA.
+    ``h2d_bytes`` counts the bytes put."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.cuda = device.type == "cuda"
+        self.h2d_bytes = 0
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
+        self.h2d_bytes += arr.nbytes
         return upload(arr, self.device)
 
     def get(self, tensors: list[torch.Tensor]) -> np.ndarray:
@@ -186,10 +215,15 @@ class ClassifyEngine:
             # the packed result word gives attempts 8 bits (reference
             # default 5, src/config/configReader.cpp:238-243)
             raise ValueError(f"max_chunks must be in [1, 254], got {max_chunks}")
-        # packing and overlap_pool are the JAX engine's upload options:
-        # accepted, and ignored here (reads go up as unpacked uint8)
+        # "auto": per host batch, 2-bit for pure-ACGT reads, base-243 when
+        # the batch carries an N; "2bit" pinned rejects N batches
         if packing not in ("auto", "2bit", "base243"):
             raise ValueError(f"packing must be auto|2bit|base243, got {packing!r}")
+        self.packing = packing
+        # overlap_pool: upload every read's later chunks during submit and
+        # gather phase B's rows on the device (off by default, as in the
+        # JAX engine; transfer_mode "overlap" or a slow "auto" turns it on)
+        self.overlap_pool = overlap_pool
         self.device = resolve_device(device)
         self.targets = FilterStack(target_filters, self.device) if target_filters else None
         self.depletes = FilterStack(deplete_filters, self.device) if deplete_filters else None
@@ -203,10 +237,11 @@ class ClassifyEngine:
         self.batch_size_b = batch_size_b or batch_size
         self.kmer_size = (self.targets or self.depletes).kmer_size
         self._plan = plan_stacks(self.targets, self.depletes)
-        self._fused: dict[tuple[int, int], FusedClassifier] = {}
+        self._fused: dict[tuple, object] = {}
         self._io = _Transfer(self.device)
 
     def _classifier(self, n_chunks: int, attempt_offset: int) -> FusedClassifier:
+        """The unpacked-read classifier for n_chunks-wide reads."""
         key = (n_chunks, attempt_offset)
         fn = self._fused.get(key)
         if fn is None:
@@ -216,6 +251,42 @@ class ClassifyEngine:
             )
             self._fused[key] = fn
         return fn
+
+    def _fused_fn(self, n_chunks: int, attempt_offset: int, packing: str) -> PackedClassifier:
+        """Packed-pool classifier for n_chunks-wide batches: phase A's
+        (offset 0, ``batch_size``) or serial phase B's (offset 1,
+        ``batch_size_b``)."""
+        key = ("packed", n_chunks, attempt_offset, packing)
+        fn = self._fused.get(key)
+        if fn is None:
+            B = self.batch_size if attempt_offset == 0 else self.batch_size_b
+            fn = PackedClassifier(self._classifier(n_chunks, attempt_offset), B, packing)
+            self._fused[key] = fn
+        return fn
+
+    def _indexed_fn(self, n_chunks: int) -> IndexedClassifier:
+        """Gather-by-index phase-B classifier (rows picked on the device)."""
+        key = ("indexed", n_chunks)
+        fn = self._fused.get(key)
+        if fn is None:
+            fn = IndexedClassifier(self._classifier(n_chunks, 1), self.batch_size_b)
+            self._fused[key] = fn
+        return fn
+
+    def probe_transfer_seconds(self, nbytes: int = PROBE_BYTES) -> float:
+        """Seconds of one upload of ``nbytes``, ended by a one-element
+        fetch (the transfer-mode probe).  A throwaway upload comes first,
+        so the process's first transfer does not count.  On the CPU it
+        times the host copy."""
+
+        def put(arr: np.ndarray) -> torch.Tensor:
+            return upload(arr, self.device) if self._io.cuda else torch.from_numpy(arr).clone()
+
+        put(np.zeros(4096, dtype=np.uint8))[:1].cpu()
+        buf = np.zeros(nbytes, dtype=np.uint8)
+        t0 = time.monotonic()
+        put(buf)[:1].cpu()
+        return time.monotonic() - t0
 
     def classify_sequences(self, seqs: list[str]):
         """Classify a list of sequences (two-phase device path).
@@ -326,20 +397,30 @@ class _ClassifyJob:
         enc, lens = encode_batch(seqs, cl * C)
         self.enc, self.lens = enc, lens
         io = engine._io
-        n_pad = -(-n // B) * B
 
-        # --- phase A: chunk 0 of every read ----------------------------
-        fn_a = engine._classifier(1, 0)
-        reads_a = np.zeros((n_pad, cl), dtype=np.uint8)
-        reads_a[:n] = enc[:, :cl]
-        lens_a = np.zeros(n_pad, dtype=np.int32)
-        lens_a[:n] = lens
-        dev_a, dev_lens = io.put(reads_a), io.put(lens_a)
-        self.futs_a = []
-        for s in range(0, n_pad, B):
-            lb = dev_lens[s : s + B]
-            c, b, a = fn_a(dev_a[s : s + B], lb)
-            self.futs_a.append((pack_results(c, b, a), ~c & (lb > cl)))
+        # --- phase A: chunk 0 of every read, one packed pool -----------
+        # One native pass packs chunk 0 and finds whether the batch holds
+        # an N anywhere: "auto" then packs again at base 243
+        packing = "2bit" if engine.packing == "auto" else engine.packing
+        pk_a, has_n = pack_codes(enc, packing, cl)
+        if has_n and engine.packing == "2bit":
+            raise ValueError("packing='2bit' pinned but this batch contains N bases")
+        if has_n and engine.packing == "auto":
+            packing = "base243"
+            pk_a, _ = pack_codes(enc, packing, cl)
+        self.packing = packing
+        fn_a = engine._fused_fn(1, 0, packing)
+        dev_a, dev_lens = io.put(pk_a), io.put(lens)
+        self.futs_a = [fn_a(dev_a, dev_lens, s) for s in range(0, n, B)]
+
+        # overlap_pool: pack and upload chunks 1..C-1 of EVERY read at base
+        # 243 while the device runs phase A; phase B then uploads only
+        # the indices of its reads and gathers their rows on the device
+        self.dev_pool = self.dev_lb_all = None
+        if engine.overlap_pool and C > 1 and bool((lens > cl).any()):
+            pool, _ = pack_codes(enc[:, cl:], "base243")
+            self.dev_pool = io.put(pool)
+            self.dev_lb_all = io.put(np.maximum(lens - cl, 0).astype(np.int32))
 
     def dispatch_b(self):
         """Fetch the pending flags and launch phase B (idempotent)."""
@@ -349,7 +430,7 @@ class _ClassifyJob:
         cl, C = engine.chunk_length, engine.max_chunks
         B = engine.batch_size_b
         io = engine._io
-        pend = io.get([p for _, p in self.futs_a])[: self.n]
+        pend = io.get([p for _, p in self.futs_a])
         pidx = np.nonzero(pend)[0]
         futs_b = []
         if pidx.size:
@@ -359,19 +440,17 @@ class _ClassifyJob:
                 c_rest = int(c_rest)
                 sel = np.nonzero(n_rest == c_rest)[0]
                 u = sel.size
-                u_pad = -(-u // B) * B
-                L_b = cl * c_rest
-                fn_b = engine._classifier(c_rest, 1)
-                lb = np.zeros(u_pad, dtype=np.int32)
-                lb[:u] = plens[sel] - cl
-                reads_b = np.zeros((u_pad, L_b), dtype=np.uint8)
-                reads_b[:u] = self.enc[pidx[sel], cl : cl + L_b]
-                dev_b, dev_lb = io.put(reads_b), io.put(lb)
-                futs = []
-                for s in range(0, u_pad, B):
-                    c, b, a = fn_b(dev_b[s : s + B], dev_lb[s : s + B])
-                    futs.append(pack_results(c, b, a))
-                futs_b.append((pidx[sel], u, futs))
+                if self.dev_pool is not None:
+                    fn_b = engine._indexed_fn(c_rest)
+                    dev_idx = io.put(pidx[sel].astype(np.int32))
+                    futs = [fn_b(self.dev_pool, self.dev_lb_all, dev_idx, s)[0] for s in range(0, u, B)]
+                else:
+                    # a bucket of c_rest chunks packs only its cl * c_rest columns
+                    fn_b = engine._fused_fn(c_rest, 1, self.packing)
+                    pk_b, _ = pack_codes(self.enc[pidx[sel], cl : cl * (1 + c_rest)], self.packing)
+                    dev_b, dev_lb = io.put(pk_b), io.put((plens[sel] - cl).astype(np.int32))
+                    futs = [fn_b(dev_b, dev_lb, s)[0] for s in range(0, u, B)]
+                futs_b.append((pidx[sel], futs))
         self.futs_b = futs_b
 
     def finish(self):
@@ -384,18 +463,51 @@ class _ClassifyJob:
         if n == 0:
             return classified, best, attempts
         self.dispatch_b()
-        flat = [r for r, _ in self.futs_a] + [f for _, _, futs in self.futs_b for f in futs]
+        flat = [r for r, _ in self.futs_a] + [f for _, futs in self.futs_b for f in futs]
         res = self.engine._io.get(flat)
-        n_a = len(self.futs_a) * self.engine.batch_size
         classified[:], best[:], attempts[:] = unpack_results_np(res[:n])
-        pos = n_a
-        for out_idx, u, futs in self.futs_b:
-            ok, bb, att = unpack_results_np(res[pos : pos + u])
-            pos += len(futs) * self.engine.batch_size_b
+        pos = n
+        for out_idx, _ in self.futs_b:
+            ok, bb, att = unpack_results_np(res[pos : pos + out_idx.size])
+            pos += out_idx.size
             classified[out_idx] = ok
             best[out_idx] = bb
             attempts[out_idx] = att
         return classified, best, attempts
+
+
+def choose_transfer_mode(
+    mode: str,
+    engine: ClassifyEngine,
+    *,
+    probe_bytes: int = PROBE_BYTES,
+    congested_seconds: float = CONGESTED_SECONDS,
+    probe_fn=None,
+    logger=None,
+) -> bool:
+    """Resolve a ``transfer_mode`` config value to overlap_pool on/off.
+
+    ``serial``: pack phase-B inputs after phase A (fewest bytes, a serial
+    stall), right on a fast link.  ``overlap``: upload the full phase-B
+    pool during phase A (overlap_pool), right when uploads are slow.
+    ``auto``: one timed upload of ``probe_bytes`` decides (at least
+    ``congested_seconds`` means congested), through ``probe_fn(nbytes)``
+    when given, else ``engine.probe_transfer_seconds``; the decision is
+    logged on ``logger``.
+    """
+    mode = (mode or "serial").lower()
+    if mode not in ("serial", "overlap", "auto"):
+        raise ValueError(f"transfer_mode must be serial|overlap|auto, got {mode!r}")
+    if mode == "auto":
+        seconds = probe_fn(probe_bytes) if probe_fn is not None else engine.probe_transfer_seconds(probe_bytes)
+        decided = "overlap" if seconds >= congested_seconds else "serial"
+        if logger is not None:
+            logger.info(
+                "transfer_mode=auto: %.0f KB H2D probe took %.1f ms -> %s",
+                probe_bytes / 1024, seconds * 1e3, decided,
+            )
+        mode = decided
+    return mode == "overlap"
 
 
 def classify_read_files(
@@ -422,8 +534,10 @@ def classify_read_files(
     src/main/classify.hpp:142-380).  ``pipeline_depth`` host batches are
     in flight: batch i+1 is encoded and launched, and batch i-1's FASTAs
     written, while the device computes batch i.  ``transfer_mode``
-    ("serial" | "overlap" | "auto") is accepted and ignored, as
-    ``packing`` is by ClassifyEngine.
+    ("serial" | "overlap" | "auto") sets the engine's overlap_pool
+    (``choose_transfer_mode``); an "auto" probe that finds the link
+    congested also raises ``host_batch_reads`` to 65,536 and sets depth 1,
+    and logs it on ClassifyLog.
 
     ``shard=(i, n)``: only records whose index % n == i are read — the
     process's input shard in a multi-process run
@@ -436,9 +550,21 @@ def classify_read_files(
         target_filters, deplete_filters, error_rate, significance,
         chunk_length, max_chunks, batch_size, packing=packing, device=device,
     )
-    if (transfer_mode or "serial").lower() not in ("serial", "overlap", "auto"):
-        raise ValueError(f"transfer_mode must be serial|overlap|auto, got {transfer_mode!r}")
     log = get_logger("ClassifyLog")
+    probe_s = None
+    if (transfer_mode or "").lower() == "auto":
+        probe_s = engine.probe_transfer_seconds()
+    engine.overlap_pool = choose_transfer_mode(
+        transfer_mode, engine, probe_fn=None if probe_s is None else (lambda nb: probe_s), logger=log
+    )
+    if probe_s is not None and probe_s >= CONGESTED_SECONDS:
+        # a congested link: round trips dominate, so fewer, larger pools
+        host_batch_reads = max(host_batch_reads, 65536)
+        pipeline_depth = 1
+        log.info(
+            "transfer probe %.0f ms: congested -> host_batch_reads=%d depth=1",
+            probe_s * 1e3, host_batch_reads,
+        )
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     results = ClassifyResults()

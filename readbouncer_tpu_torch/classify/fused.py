@@ -16,8 +16,20 @@ programs per shape, this module has plain functions over tensors.
 * ``plan_stacks``: target and deplete stacks merged into one;
 * ``FusedClassifier``: the batch body, reads -> (classified, best,
   attempts);
+* the upload path's packings: ``pack4_np`` (2 bits a base, ACGT only)
+  and ``pack5_np`` (base 243, three bases a byte) on the host, copied
+  from the JAX package as the plain versions of the native
+  ``pack_codes``, and their inverses ``unpack4`` / ``unpack5`` on the
+  device;
+* ``PackedClassifier`` (a batch's rows of one packed pool, unpacked on
+  the device) and ``IndexedClassifier`` (phase-B rows gathered on the
+  device from a base-243 pool of every read's later chunks);
 * ``live_decisions`` and ``LiveFused``: the live loop's check_unblock for
-  a batch of reads of one bucket width, reads -> 0/1/2 decisions.
+  a batch of reads of one bucket width, reads (unpacked or base-243)
+  -> 0/1/2 decisions.
+
+The JAX package unpacks in ``jnp`` outside its Pallas kernels; here the
+unpacking and the row gather are plain torch operations on the device.
 """
 
 from __future__ import annotations
@@ -30,6 +42,11 @@ from readbouncer_tpu_torch.ibf.query import FilterStack, counts_planes
 from readbouncer_tpu_torch.ops.ibf_count import planes_dual_max
 
 __all__ = [
+    "pack5_np",
+    "pack4_np",
+    "unpack5",
+    "unpack4",
+    "packed_bytes_per_read",
     "pack_results",
     "unpack_results_np",
     "threshold_table",
@@ -39,8 +56,65 @@ __all__ = [
     "stack_dual_max",
     "plan_stacks",
     "FusedClassifier",
+    "PackedClassifier",
+    "IndexedClassifier",
     "LiveFused",
 ]
+
+
+def pack5_np(enc: np.ndarray) -> np.ndarray:
+    """Pack base codes (u8 in 0..4) 3-per-byte: byte = c0 + 5*c1 + 25*c2.
+
+    DNA over the Dna5 alphabet is 5 symbols = log2(5) = 2.32 bits/base;
+    base-243 packing hits 2.67 bits/base with a trivial decode on the
+    device.  A copy of the JAX package's function: the plain version of
+    the native ``pack_codes(codes, "base243")``.
+    """
+    R, L = enc.shape
+    P = -(-L // 3)
+    if L % 3:
+        enc = np.pad(enc, ((0, 0), (0, 3 * P - L)))
+    e = enc.reshape(R, P, 3).astype(np.uint16)
+    return (e[:, :, 0] + 5 * e[:, :, 1] + 25 * e[:, :, 2]).astype(np.uint8)
+
+
+def pack4_np(enc: np.ndarray) -> np.ndarray:
+    """Pack PURE-ACGT base codes (u8 in 0..3) 4-per-byte (2 bits/base).
+
+    25% fewer bytes than base-243; only valid when the codes hold no N
+    (code 4): the engine checks per host batch and falls back to
+    base 243.  A copy of the JAX package's function: the plain version of
+    the native ``pack_codes(codes, "2bit")``.
+    """
+    R, L = enc.shape
+    P = -(-L // 4)
+    if L % 4:
+        enc = np.pad(enc, ((0, 0), (0, 4 * P - L)))
+    e = enc.reshape(R, P, 4).astype(np.uint8)
+    return e[:, :, 0] | (e[:, :, 1] << 2) | (e[:, :, 2] << 4) | (e[:, :, 3] << 6)
+
+
+def unpack5(packed: torch.Tensor, length: int) -> torch.Tensor:
+    """Device inverse of pack5_np: [R, P] u8 -> [R, length] u8 codes
+    (``unpack5_jnp``'s digit order)."""
+    parts = torch.stack([packed % 5, (packed // 5) % 5, packed // 25], dim=-1)
+    return parts.reshape(packed.shape[0], -1)[:, :length]
+
+
+def unpack4(packed: torch.Tensor, length: int) -> torch.Tensor:
+    """Device inverse of pack4_np: [R, P] u8 -> [R, length] u8 codes
+    (``unpack4_jnp``'s digit order)."""
+    parts = torch.stack([packed & 3, (packed >> 2) & 3, (packed >> 4) & 3, packed >> 6], dim=-1)
+    return parts.reshape(packed.shape[0], -1)[:, :length]
+
+
+def packed_bytes_per_read(length: int, packing: str) -> int:
+    """Pool row bytes for one read of ``length`` bases under ``packing``."""
+    if packing == "2bit":
+        return -(-length // 4)
+    if packing == "base243":
+        return -(-length // 3)
+    raise ValueError(f"unknown packing {packing!r}")
 
 
 # result word: bit 0 classified, bits 1-8 attempts, bits 9+ best_target+1
@@ -230,13 +304,73 @@ class FusedClassifier:
         return classified, best_read, attempts
 
 
+class PackedClassifier:
+    """Pool-input variant of ``FusedClassifier`` (the JAX package's
+    make_fused_classify_packed_fn): the engine uploads one packed pool
+    per phase (``pack4_np`` / ``pack5_np`` rows of ``C*cl`` codes) and
+    each call scores one batch of its rows.
+
+    ``__call__(pool [N, P] u8, lens_pool [N] i32, start)`` unpacks rows
+    ``start .. start+batch_size`` on the device and returns (result words
+    [B] int32 (``pack_results``), pending [B] bool): pending marks the
+    reads left unresolved that have chunks past these ``C`` (lengths over
+    ``C*cl``), the engine's phase-B candidates.  The last batch of a pool
+    may be shorter: eager PyTorch needs no fixed shape, so pools are not
+    padded.
+    """
+
+    def __init__(self, fused: FusedClassifier, batch_size: int, packing: str = "base243"):
+        if packing not in ("2bit", "base243"):
+            raise ValueError(f"unknown packing {packing!r}")
+        self.fused, self.batch_size, self.packing = fused, batch_size, packing
+        self.unpack = unpack4 if packing == "2bit" else unpack5
+
+    def __call__(self, pool: torch.Tensor, lens_pool: torch.Tensor, start: int):
+        f = self.fused
+        width = f.C * f.cl
+        lens = lens_pool[start : start + self.batch_size]
+        reads = self.unpack(pool[start : start + self.batch_size], width)
+        classified, best, attempts = f(reads, lens)
+        return pack_results(classified, best, attempts), ~classified & (lens > width)
+
+
+class IndexedClassifier:
+    """Gather-by-index variant of ``PackedClassifier`` for phase B (the
+    JAX package's make_fused_classify_indexed_fn).  With ``overlap_pool``
+    the engine uploads a base-243 pool of chunks 1..C-1 of every read
+    while phase A runs, and phase B sends only the indices of its reads.
+
+    ``__call__(pool [N, P] u8, lens_pool [N] i32, idx [U] i32, start)``
+    picks rows ``idx[start .. start+batch_size]`` of the pool and of the
+    phase-B lengths (``max(len - cl, 0)``) on the device, unpacks the
+    first ``C*cl`` codes of each (a pool row holds all ``(C_max-1)*cl``)
+    and scores them.  Returns (result words [B] int32, pending [B] bool,
+    all false: phase B scores every chunk left).  The JAX package keeps
+    the pool as little-endian uint32 words and bitcasts them back, a TPU
+    layout; a uint8 [N, P] tensor gives the same rows.
+    """
+
+    def __init__(self, fused: FusedClassifier, batch_size: int):
+        self.fused, self.batch_size = fused, batch_size
+
+    def __call__(self, pool: torch.Tensor, lens_pool: torch.Tensor, idx: torch.Tensor, start: int):
+        f = self.fused
+        sel = idx[start : start + self.batch_size]
+        lens = lens_pool.index_select(0, sel)
+        reads = unpack5(pool.index_select(0, sel), f.C * f.cl)
+        classified, best, attempts = f(reads, lens)
+        return pack_results(classified, best, attempts), torch.zeros_like(classified)
+
+
 class LiveFused:
     """The live check_unblock for one bucket width (the reference's
     make_fused_live_fn): ``__call__(reads [R, max_seq_len] u8, lengths
     [R])`` -> int32 [R] decisions on the device, through K1 -> K2 on the
     merged stack where ``plan`` has one.  Thresholds come from tables at
     ``error_rate`` and ``error_rate - 0.02``; lengths are clipped to
-    ``max_seq_len``."""
+    ``max_seq_len``.  With ``packed=True`` the reads come base-243 packed,
+    [R, ceil(max_seq_len / 3)] (``pack5_np``), and are unpacked on the
+    device first: a third of the bytes to upload."""
 
     def __init__(
         self,
@@ -245,15 +379,19 @@ class LiveFused:
         max_seq_len: int,
         error_rate: float,
         significance: float,
+        packed: bool = False,
         plan=None,
     ):
         self.targets, self.depletes = targets, depletes
         self.max_seq_len = max_seq_len
+        self.packed = packed
         self.plan = plan if plan is not None else plan_stacks(targets, depletes)
         dev = (targets or depletes).device
         self.tabs = _threshold_tabs(targets, depletes, max_seq_len, error_rate, significance, dev)
 
     def __call__(self, reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        if self.packed:
+            reads = unpack5(reads, self.max_seq_len)
         lens = torch.clamp(lengths.to(torch.int64), max=self.max_seq_len)
         t_b, d_b, t_r, d_r = _dual_maxima(self.targets, self.depletes, self.plan, reads, lens, self.tabs)
         return live_decisions(d_b, t_b, d_r, t_r)

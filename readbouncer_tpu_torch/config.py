@@ -83,9 +83,10 @@ class TPUParams:
     significance: float = 0.95
     hash_functions: int = 3
     max_fp: float = 0.01
-    # the JAX engine's upload options ("serial" | "overlap" | "auto";
-    # "auto" | "2bit" | "base243"): read and checked, ignored by this
-    # port's engine, which uploads unpacked reads (classify/engine.py)
+    # phase-B uploads: "serial" | "overlap" | "auto"
+    # (classify.engine.choose_transfer_mode); read-pool packing: "auto"
+    # (2-bit for pure-ACGT batches, base-243 where a batch holds an N) |
+    # "2bit" | "base243" (classify.engine.ClassifyEngine)
     transfer_mode: str = "serial"
     packing: str = "auto"
     # host batches in flight in classify (2 = double-buffered: encode/

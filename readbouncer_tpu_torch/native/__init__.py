@@ -3,7 +3,9 @@
 ``rbt_native.cpp`` beside this file is the port's copy of the JAX
 package's host layer (``native/rbt_native.cpp``): ``encode_batch``,
 ``encode``, the streaming ``read_records`` and the IBF build's
-``insert_fragments``.  It is a CPython extension module named
+``insert_fragments``, plus the port's own ``pack_codes``, the upload
+path's 2-bit / base-243 packer (bit-equal to the JAX package's numpy
+``pack4_np`` / ``pack5_np``).  It is a CPython extension module named
 ``readbouncer_tpu_torch.native._rbt_host`` (``PyInit__rbt_host``), never
 ``readbouncer_tpu._native``.
 
@@ -18,8 +20,8 @@ build raises with the compiler's output; no caller falls back to numpy.
 Nothing is compiled or loaded on import.
 
 Callers count their calls in ``CALLS`` (``encode_batch``,
-``read_records``, ``insert_fragments``), so a run can show that a path
-went through the library.
+``read_records``, ``insert_fragments``, ``pack_codes``), so a run can
+show that a path went through the library.
 """
 
 from __future__ import annotations

@@ -4,12 +4,15 @@
 // layer: FASTA/FASTQ parsing, Dna5 base encoding, fixed-shape batch
 // packing and the IBF build's insert loop, the pure-C++ equivalents of
 // the reference's SeqAn I/O + alphabet layer (src/IBF/IBFBuild.cpp:52
-// readRecords, Dna5 ordValue encoding).  The four functions are the
-// original's, with one change that keeps every output: the line reader
+// readRecords, Dna5 ordValue encoding).  The original's four functions
+// are kept, with one change that keeps every output: the line reader
 // searches for a line's end only in the bytes it has not searched yet
 // (LineReader::getline), so a long line costs linear, not quadratic,
-// time.  The module's name differs: this is the CPython extension
-// module readbouncer_tpu_torch.native._rbt_host.  The port
+// time.  One function is the port's own: pack_codes, the batch packer
+// of the upload path (the JAX package packs in numpy, pack4_np /
+// pack5_np in readbouncer_tpu/classify/fused.py; it returns their
+// bytes bit for bit).  The module's name differs: this is the CPython
+// extension module readbouncer_tpu_torch.native._rbt_host.  The port
 // has no Python fallback on its paths: readbouncer_tpu_torch/fastio,
 // classify/engine.py and ibf/build.py call it, and their numpy / Python
 // versions serve only as the plain versions the tests compare with.
@@ -119,6 +122,104 @@ PyObject* encode(PyObject*, PyObject* arg) {
     if (!out) return nullptr;
     encode_into(data, n, (uint8_t*)PyBytes_AS_STRING(out));
     return out;
+}
+
+// ---------------------------------------------------------------------
+// pack_codes(codes, mode: str, width: int = -1) -> (bytes, bool)
+//
+// Packs the first `width` columns (every column when -1) of each row of
+// a 2-D uint8 buffer of base codes, read in place (rows may be strided,
+// the bytes of a row must be adjacent, e.g. a column slice of a numpy
+// array):
+//   "2bit"    four codes a byte, c0 | c1<<2 | c2<<4 | c3<<6  (pack4_np)
+//   "base243" three codes a byte, c0 + 5*c1 + 25*c2, kept mod 256 (pack5_np)
+// A row's last byte is padded with code 0.  Returns the [rows, P]
+// packed bytes and whether any code of the WHOLE buffer (every column,
+// not only the packed ones) exceeds 3, i.e. holds an N: one pass decides
+// a batch's packing and packs its first chunk.  The work is split over
+// threads by rows, outside the interpreter lock.
+template <int PER_BYTE>
+inline void pack_row(const uint8_t* row, Py_ssize_t width, uint8_t* out) {
+    Py_ssize_t full = width / PER_BYTE;
+    for (Py_ssize_t p = 0; p < full; ++p) {
+        const uint8_t* c = row + p * PER_BYTE;
+        if (PER_BYTE == 4)
+            out[p] = (uint8_t)(c[0] | (c[1] << 2) | (c[2] << 4) | (c[3] << 6));
+        else
+            out[p] = (uint8_t)(c[0] + 5 * c[1] + 25 * c[2]);
+    }
+    Py_ssize_t rest = width - full * PER_BYTE;
+    if (rest) {
+        uint8_t c[4] = {0, 0, 0, 0};
+        for (Py_ssize_t i = 0; i < rest; ++i) c[i] = row[full * PER_BYTE + i];
+        out[full] = PER_BYTE == 4
+                        ? (uint8_t)(c[0] | (c[1] << 2) | (c[2] << 4) | (c[3] << 6))
+                        : (uint8_t)(c[0] + 5 * c[1] + 25 * c[2]);
+    }
+}
+
+PyObject* pack_codes(PyObject*, PyObject* args) {
+    PyObject* obj;
+    const char* mode;
+    Py_ssize_t width = -1;
+    if (!PyArg_ParseTuple(args, "Os|n", &obj, &mode, &width)) return nullptr;
+    int per_byte;
+    if (strcmp(mode, "2bit") == 0) per_byte = 4;
+    else if (strcmp(mode, "base243") == 0) per_byte = 3;
+    else {
+        PyErr_Format(PyExc_ValueError, "unknown packing '%s' (2bit or base243)", mode);
+        return nullptr;
+    }
+    Py_buffer view;
+    if (PyObject_GetBuffer(obj, &view, PyBUF_STRIDES | PyBUF_FORMAT) < 0) return nullptr;
+    const char* err = nullptr;
+    if (view.ndim != 2) err = "codes must be a 2-D buffer";
+    else if (view.itemsize != 1 || (view.format && strcmp(view.format, "B") != 0))
+        err = "codes must be uint8";
+    else if (view.shape[1] > 1 && view.strides[1] != 1)
+        err = "the bytes of a row of codes must be adjacent";
+    else if (width < -1 || width > view.shape[1]) err = "width out of range";
+    if (err) {
+        PyBuffer_Release(&view);
+        PyErr_SetString(PyExc_ValueError, err);
+        return nullptr;
+    }
+    Py_ssize_t rows = view.shape[0], cols = view.shape[1];
+    Py_ssize_t stride = view.strides[0];
+    if (width == -1) width = cols;
+    Py_ssize_t P = (width + per_byte - 1) / per_byte;
+    PyObject* buf = PyBytes_FromStringAndSize(nullptr, rows * P);
+    if (!buf) { PyBuffer_Release(&view); return nullptr; }
+    const uint8_t* src = (const uint8_t*)view.buf;
+    uint8_t* out = (uint8_t*)PyBytes_AS_STRING(buf);
+    std::atomic<bool> any_n(false);
+    Py_BEGIN_ALLOW_THREADS;
+    auto work = [&](Py_ssize_t r0, Py_ssize_t r1) {
+        uint8_t acc = 0;
+        for (Py_ssize_t r = r0; r < r1; ++r) {
+            const uint8_t* row = src + r * stride;
+            for (Py_ssize_t i = 0; i < cols; ++i) acc |= row[i];
+            if (per_byte == 4) pack_row<4>(row, width, out + r * P);
+            else pack_row<3>(row, width, out + r * P);
+        }
+        if (acc & 0xFC) any_n.store(true, std::memory_order_relaxed);
+    };
+    // one thread per ~1 MB of codes, at most the host's cores (8 at most)
+    unsigned hw = std::max(1u, std::min(8u, std::thread::hardware_concurrency()));
+    Py_ssize_t n_threads = std::min<Py_ssize_t>(hw, 1 + rows * cols / (1 << 20));
+    if (n_threads <= 1) {
+        work(0, rows);
+    } else {
+        std::vector<std::thread> pool;
+        Py_ssize_t step = (rows + n_threads - 1) / n_threads;
+        for (Py_ssize_t r0 = 0; r0 < rows; r0 += step)
+            pool.emplace_back(work, r0, std::min(rows, r0 + step));
+        for (auto& th : pool) th.join();
+    }
+    Py_END_ALLOW_THREADS;
+    PyBuffer_Release(&view);
+    PyObject* result = Py_BuildValue("(NO)", buf, any_n.load() ? Py_True : Py_False);
+    return result;
 }
 
 // ---------------------------------------------------------------------
@@ -503,6 +604,8 @@ PyMethodDef kMethods[] = {
     {"encode_batch", encode_batch, METH_VARARGS,
      "encode_batch(seqs, length) -> (u8 bytes [R*length], i32 bytes [R])"},
     {"encode", encode, METH_O, "encode(seq) -> ordValue bytes"},
+    {"pack_codes", pack_codes, METH_VARARGS,
+     "pack_codes(codes_u8_2d, '2bit'|'base243', width=-1) -> (packed bytes [R*P], any code > 3)"},
     {"read_records", read_records, METH_VARARGS,
      "read_records(path, first_word_id=False) -> iterator of (id, seq_bytes);"
      " gzip transparent, streaming"},

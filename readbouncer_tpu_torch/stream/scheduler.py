@@ -38,7 +38,7 @@ import numpy as np
 
 import torch
 
-from readbouncer_tpu_torch.classify.engine import encode_batch
+from readbouncer_tpu_torch.classify.engine import encode_batch, pack_codes
 from readbouncer_tpu_torch.classify.fused import LiveFused, plan_stacks
 from readbouncer_tpu_torch.classify.policy import (
     DECISION_STOP_RECEIVING,
@@ -119,9 +119,10 @@ class LiveClassifier:
 
     One ``LiveFused`` per length bucket: most ticks decide on single fresh
     chunks (~250-500 bp) in the short bucket; only once_seen retries carry
-    concatenated sequences into the longer ones.  Reads go up as unpacked
-    uint8 codes.  Each bucket's decisions stay on the device until the
-    end of ``decide``, which fetches them all in one copy.
+    concatenated sequences into the longer ones.  Reads go up base-243
+    packed (the native ``pack_codes``, three bases a byte) and are
+    unpacked on the device.  Each bucket's decisions stay on the device
+    until the end of ``decide``, which fetches them all in one copy.
     """
 
     def __init__(
@@ -142,7 +143,7 @@ class LiveClassifier:
         self.short_len = widths[0]
         self.bucket_lens = widths
         self._fused = {
-            w: LiveFused(self.targets, self.depletes, w, cfg.error_rate, cfg.significance, plan=plan)
+            w: LiveFused(self.targets, self.depletes, w, cfg.error_rate, cfg.significance, packed=True, plan=plan)
             for w in widths
         }
         self._batch = live_bucket_batches(cfg, widths)
@@ -151,7 +152,8 @@ class LiveClassifier:
         for start in range(0, len(idx), batch):
             part_idx = idx[start : start + batch]
             enc, lens = encode_batch([seqs[j][:width] for j in part_idx], width)
-            parts.append((part_idx, fn(upload(enc, self.device), upload(lens, self.device))))
+            packed, _ = pack_codes(enc, "base243")
+            parts.append((part_idx, fn(upload(packed, self.device), upload(lens, self.device))))
 
     def decide(self, seqs: list[str]) -> np.ndarray:
         """Batched decisions: 0 continue / 1 unblock / 2 stop_receiving."""

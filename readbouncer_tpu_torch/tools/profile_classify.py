@@ -7,19 +7,19 @@ split into its serial stages, each ended by a synchronise of the card:
 
     host encode            encode_batch of every read (the native host
                            library's encode_batch, native/rbt_native.cpp)
-    H2D phase-A reads      upload of chunk 0 of every read (uint8)
-    submit                 encode + upload + launch of phase A (host)
+    host pack (phase A)    chunk 0 of every read packed 2 bits a base
+                           (the native pack_codes; the script's pack4_np)
+    H2D phase-A pool       upload of that packed pool
+    submit                 encode + pack + upload + launch of phase A (host)
     phase A on the device  the wait for phase A
-    dispatch B             the pending flags' fetch, phase B's upload
-                           and launch
+    dispatch B             the pending flags' fetch, phase B's pack,
+                           upload and launch
     phase B on the device  the wait for phase B
     final fetch            the results' copy and unpacking
     serial total           submit .. final fetch, as reads/s
 
-The JAX script's "host pack (phase A)" stage (``pack4_np``, five bases
-a byte) has no counterpart: the port uploads unpacked uint8, and the
-tool prints a line that says so.  The JAX script prints text only; the
-last line here is one JSON object with the same numbers:
+The JAX script prints text only; the last line here is one JSON object
+with the same numbers:
 
     {"metric": "classify_serial_reads_per_sec", "value", "unit", "reads",
      "batch", "stages_ms", "device"}
@@ -37,9 +37,7 @@ import json
 import sys
 import time
 
-import numpy as np
-
-from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch
+from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch, pack_codes
 from readbouncer_tpu_torch.device import resolve_device, upload
 from readbouncer_tpu_torch.ibf.storage import IBFData
 from readbouncer_tpu_torch.tools._bench_util import card, sync
@@ -78,29 +76,30 @@ def run_profile_classify(
     ms = {}
     (enc, _), t = _timed(lambda: encode_batch(seqs, cl * C), dev)
     ms["host_encode"] = t * 1e3
-    reads_a = np.ascontiguousarray(enc[:, :cl])
-    _, t = _timed(lambda: upload(reads_a, dev), dev)
+    (pk_a, _), t = _timed(lambda: pack_codes(enc, "2bit", cl), dev)
+    ms["host_pack"] = t * 1e3
+    _, t = _timed(lambda: upload(pk_a, dev), dev)
     ms["h2d_phase_a"] = t * 1e3
     t0 = time.perf_counter()
     job = eng.classify_submit(seqs)
-    ms["submit"] = (time.perf_counter() - t0) * 1e3  # encode + upload + launch A; no wait
+    ms["submit"] = (time.perf_counter() - t0) * 1e3  # encode + pack + upload + launch A; no wait
     ms["phase_a"] = _wait_ms(dev)
     t0 = time.perf_counter()
     job.dispatch_b()
-    ms["dispatch_b"] = (time.perf_counter() - t0) * 1e3  # pending fetch + upload + launch B
+    ms["dispatch_b"] = (time.perf_counter() - t0) * 1e3  # pending fetch + pack + upload + launch B
     ms["phase_b"] = _wait_ms(dev)
     (classified, best, attempts), t = _timed(job.finish, dev)
     ms["final_fetch"] = t * 1e3
     total = sum(ms[k] for k in ("submit", "phase_a", "dispatch_b", "phase_b", "final_fetch")) / 1e3
     n = len(seqs)
     print(f"device               : {card(dev)}")
-    print(f"reads                : {n} (device batch {batch}, reads uploaded as unpacked uint8)")
+    print(f"reads                : {n} (device batch {batch}, packing {job.packing})")
     print(f"host encode (native) : {ms['host_encode']:8.1f} ms")
-    print("host pack (phase A)  : no counterpart: the port uploads unpacked uint8 (no pack4_np)")
-    print(f"H2D phase-A reads    : {ms['h2d_phase_a']:8.1f} ms ({reads_a.nbytes / 1e6:.1f} MB synced)")
-    print(f"submit (enc+put+launch A): {ms['submit']:8.1f} ms")
+    print(f"host pack (phase A)  : {ms['host_pack']:8.1f} ms (native pack_codes, 2 bits a base)")
+    print(f"H2D phase-A pool     : {ms['h2d_phase_a']:8.1f} ms ({pk_a.nbytes / 1e6:.1f} MB synced)")
+    print(f"submit (enc+pack+put+launch A): {ms['submit']:8.1f} ms")
     print(f"phase A on the device: {ms['phase_a']:8.1f} ms")
-    print(f"dispatch B (pend fetch+put+launch B): {ms['dispatch_b']:8.1f} ms")
+    print(f"dispatch B (pend fetch+pack+put+launch B): {ms['dispatch_b']:8.1f} ms")
     print(f"phase B on the device: {ms['phase_b']:8.1f} ms")
     print(f"final fetch          : {ms['final_fetch']:8.1f} ms")
     print(f"serial total         : {total:8.3f} s = {n / total:.0f} reads/s", flush=True)

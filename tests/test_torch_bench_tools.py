@@ -176,12 +176,13 @@ def test_tool_decides_as_the_jax_engine(world, tool):
     if tool == "bench":
         out = bench.run_bench([target], [deplete], seqs, "cpu", batch=64, host_batch=128, runs=1)
         assert [int(c.sum()) for c in out["classified_by_run"]] == [int(want[0].sum())] * 2
+        assert out["line"]["transfer_mode"] == "pipelined" and out["line"]["transfer_probe_ms"] < 80
     elif tool == "bench_toy":
         out = bench_toy.run_bench_toy([target], [deplete], seqs, "cpu", batch=64, runs=1)
     else:
         out = profile_classify.run_profile_classify([target], [deplete], seqs, "cpu", batch=64)
         assert set(out["line"]["stages_ms"]) == {
-            "host_encode", "h2d_phase_a", "submit", "phase_a", "dispatch_b", "phase_b", "final_fetch"
+            "host_encode", "host_pack", "h2d_phase_a", "submit", "phase_a", "dispatch_b", "phase_b", "final_fetch"
         }
     for got, w in zip((out["classified"], out["best"], out["attempts"]), want):
         np.testing.assert_array_equal(got, w)
@@ -192,9 +193,10 @@ def test_tool_decides_as_the_jax_engine(world, tool):
 # per tool: argv (the script's own flags), module constants set small,
 # and the JAX script's metric and keys, with what the port's line adds or drops
 LINES = {
-    "bench": (bench, ["--batch", "64", "--host-batch", "128"], {"N_READS": 256, "N_TIMED_RUNS": 1},
-              "classify_reads_per_sec_realistic",
-              {"metric", "value", "unit", "vs_baseline", "classified", "run_seconds"}),
+    "bench": (bench, ["--batch", "64", "--host-batch", "128", "--force-mode", "single_pool"],
+              {"N_READS": 256, "N_TIMED_RUNS": 1}, "classify_reads_per_sec_realistic",
+              {"metric", "value", "unit", "vs_baseline", "transfer_probe_ms", "transfer_mode", "classified",
+               "run_seconds"}),
     "bench_build": (bench_build, ["--mb", "0.05", "--runs", "2"], {}, "ibf_build_mbases_per_sec",
                     {"metric", "value", "unit", "genome_mb", "median_seconds", "runs", "peak_device_gb"}),
     "bench_toy": (bench_toy, [], {"GENOME_LEN": 20_000, "N_READS": 256, "BATCH_SIZE": 64, "N_TIMED_RUNS": 1},
@@ -219,5 +221,7 @@ def test_main_prints_the_scripts_json_line_last(tool, request, monkeypatch, tmp_
     assert line["metric"] == metric and line["device"] == "cpu" and line["value"] > 0
     if tool == "bench_build":
         assert line["runs"] == 2 and line["genome_mb"] == 0.05 and line["peak_device_gb"] is None
+    if tool == "bench":
+        assert line["transfer_mode"] == "single_pool" and line["transfer_probe_ms"] > 0
     if mod in (bench, profile_classify):
         assert out.count("bits sha256 equal to the reference's") == 4

@@ -2,18 +2,20 @@
 
 ``classify_read_files`` of the port runs on the CPU (its kernels' plain
 versions) on the fixtures of tests/test_fused.py and must give the JAX
-function's output FASTAs and counters exactly; the JAX engine's upload
-options are accepted and change no decision; bad options are refused.
+function's output FASTAs and counters exactly; the upload options
+(packing, overlap_pool) decide as the JAX engine's do, a pinned 2-bit
+packing refuses N bases in both; bad options are refused.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from readbouncer_tpu.classify.engine import ClassifyEngine as JaxEngine
 from readbouncer_tpu.classify.engine import classify_read_files as jax_classify_read_files
 from readbouncer_tpu_torch.classify.engine import ClassifyEngine, classify_read_files
 from readbouncer_tpu_torch.errors import EmptyFilterError
-from test_torch_engine import _assert_same, _engines, _mixed_reads, filters  # noqa: F401
+from test_torch_engine import _assert_same, _mixed_reads, filters  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -32,20 +34,25 @@ def test_engine_validation(filters, tmp_path):
 
 
 def test_upload_options_change_no_decision(filters):
-    """``packing`` and ``overlap_pool`` select the JAX engine's upload
-    path; the port takes every value, uploads unpacked reads, and decides
-    as the JAX engine does, reads with N bases included."""
-    genomes, _, (tt, td) = filters
+    """``packing`` and ``overlap_pool`` select the upload path (packed
+    pools unpacked on the device, the indexed phase-B pool).  On reads
+    with N bases, ``packing="2bit"`` raises in both packages, and every
+    other (packing, overlap_pool) pair decides as the JAX engine with the
+    same options does."""
+    genomes, (jt, jd), (tt, td) = filters
     seqs = _mixed_reads(genomes, np.random.default_rng(77), n=24, length=600)
     for i in (2, 5, 9):
         s = seqs[i]
         seqs[i] = s[:100] + "N" + s[101:300] + "NNNN" + s[304:]
     kw = dict(error_rate=0.1, chunk_length=250, max_chunks=3, batch_size=8)
-    jax_e, _ = _engines(filters, **kw)
-    want = jax_e.classify_sequences(seqs)
-    assert want[0].any() and not want[0].all()
-    for packing in ("auto", "2bit", "base243"):
-        for overlap_pool in (False, True):
+    for overlap_pool in (False, True):
+        with pytest.raises(ValueError, match="2bit"):
+            JaxEngine(jt, jd, packing="2bit", overlap_pool=overlap_pool, **kw).classify_sequences(seqs)
+        with pytest.raises(ValueError, match="2bit"):
+            ClassifyEngine(tt, td, packing="2bit", overlap_pool=overlap_pool, device="cpu", **kw).classify_sequences(seqs)
+        for packing in ("auto", "base243"):
+            want = JaxEngine(jt, jd, packing=packing, overlap_pool=overlap_pool, **kw).classify_sequences(seqs)
+            assert want[0].any() and not want[0].all()
             e = ClassifyEngine(tt, td, packing=packing, overlap_pool=overlap_pool, device="cpu", **kw)
             _assert_same(want, e.classify_sequences(seqs))
 

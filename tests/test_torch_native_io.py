@@ -231,12 +231,13 @@ def test_loader_builds_once_then_reuses(tmp_path):
 def test_missing_compiler_raises_and_nothing_falls_back(tmp_path):
     """With ``$CXX`` naming a missing compiler and nothing built, every
     caller of the library raises the loader's error: the encode, the
-    reader, the CPU build's insert and the classify engine."""
+    reader, the CPU build's insert, the upload path's packer and the
+    classify engine."""
     (tmp_path / "g.fasta").write_text(">g\n" + "ACGT" * 300 + "\n")
     proc = _fresh_build(
         """
         import numpy as np
-        from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch
+        from readbouncer_tpu_torch.classify.engine import ClassifyEngine, encode_batch, pack_codes
         from readbouncer_tpu_torch.fastio.fasta import read_records
         from readbouncer_tpu_torch.ibf.build import build_ibf, build_ibf_records
         from readbouncer_tpu_torch.ibf.params import IBFParams
@@ -255,6 +256,7 @@ def test_missing_compiler_raises_and_nothing_falls_back(tmp_path):
         checks = {
             "load": raised(native.load_native),
             "encode_batch": raised(lambda: encode_batch(["ACGT"], 4)),
+            "pack_codes": raised(lambda: pack_codes(np.zeros((2, 8), np.uint8), "2bit")),
             "read_records": raised(lambda: list(read_records("g.fasta"))),
             "build_records": raised(lambda: build_ibf_records([("g", "ACGT" * 300)], params, device="cpu")),
             "classify": raised(lambda: engine.classify_sequences(["ACGT" * 100])),
